@@ -70,6 +70,14 @@ def ctx_for(p_name: str) -> FieldCtx:
     return FR if p_name == "Fr" else FQ
 
 
+def device_key(device) -> str:
+    """A device's cache key: "cuda" and "cuda:<current>" are one device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
 # ------------------------- host <-> device conversion -----------------------
 
 def _native_lib(ctx: FieldCtx, n: int):

@@ -1,6 +1,6 @@
 """Field kernels of the port (counterpart of sha2cq_tpu/ops/pallas_field.py).
 
-Two wrappers, each with its plain PyTorch version and a launch counter:
+Three wrappers, each with its plain PyTorch version and a launch counter:
 
 * K1 `mont_mul` replaces `pallas_field.pallas_mont_mul` (and the jnp
   `fields.device.mont_mul` the reference's h path calls): elementwise
@@ -11,10 +11,14 @@ Two wrappers, each with its plain PyTorch version and a launch counter:
   digit-matmul NTT's fused epilogue, (32, M, X) int32 digit planes ->
   (16, M, X) canonical limbs multiplied by a twiddle tile, a periodic
   twiddle block or a broadcast scalar.
+* K4 `ntt_radix2` replaces the jnp butterflies of `ntt._ntt_core` /
+  `ntt.ntt_last_axis`: the radix-2 NTT along the last axis of a
+  (16, ..., n) limb tensor (plain version: ops/ntt.ntt_last_axis_plain).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  There is no shape gate: the kernels index every operand directly
-and mask the ragged edge.
+and mask the ragged edge.  (The h VM's kernel K3 has its wrapper in
+plonk/h_vm.py; its counter lives here with the others.)
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from . import kernels as K
 NDIG = 32
 
 # Launch counts, one per kernel: incremented exactly where a kernel launches.
-launches = {"mont_mul": 0, "planes_to_limbs_mul": 0, "h_vm_run": 0}
+launches = {"mont_mul": 0, "planes_to_limbs_mul": 0, "h_vm_run": 0,
+            "ntt_radix2": 0}
 
 
 def reset_launches() -> None:
@@ -218,4 +223,43 @@ def planes_to_limbs_mul(O: torch.Tensor, mult: torch.Tensor, ctx=FR,
     K.check(lib.k2_planes_to_limbs_mul(
         O.data_ptr(), mult.data_ptr(), out.data_ptr(), M, X, mls, mms, div,
         mod, p8, n0, folds, K.stream_ptr(O)), "k2_planes_to_limbs_mul")
+    return out
+
+
+# --------------------------------- K4 ---------------------------------------
+
+def ntt_radix2(a: torch.Tensor, twiddles: torch.Tensor, k: int,
+               ctx=FR) -> torch.Tensor:
+    """Radix-2 NTT along the last axis (size 2^k) of a CUDA (16, ..., n)
+    limb tensor (int32, or int16 storage) with the (16, n/2) Montgomery
+    twiddle table: kernel K4, one launch per stage.  Returns (16, ..., n)
+    int32 limbs.  The CPU version is ops/ntt.ntt_last_axis_plain."""
+    if not a.is_cuda:
+        raise ValueError("ntt_radix2 launches K4 and takes CUDA tensors; "
+                         "CPU tensors take ops/ntt.ntt_last_axis_plain")
+    if not 0 <= k <= 30:
+        raise ValueError(f"ntt_radix2: k = {k} outside 0..30")
+    n = 1 << k
+    if a.dim() < 2 or a.shape[0] != NLIMB or a.shape[-1] != n:
+        raise ValueError(f"ntt_radix2: limbs must be (16, ..., {n}), got "
+                         f"{tuple(a.shape)}")
+    if a.dtype not in (torch.int16, LIMB):
+        raise TypeError(f"ntt_radix2: limb dtype {a.dtype}")
+    if twiddles.dtype != LIMB or twiddles.shape != (NLIMB, max(n // 2, 1)):
+        raise ValueError(f"ntt_radix2: twiddles must be (16, {max(n // 2, 1)}) "
+                         f"int32, got {tuple(twiddles.shape)} {twiddles.dtype}")
+    if twiddles.device != a.device:
+        raise ValueError("ntt_radix2: limbs and twiddles on different devices")
+    a = a.contiguous()
+    if k == 0 or a.numel() == 0:
+        return as_limbs32(a).clone()
+    twiddles = twiddles.contiguous()
+    out = torch.empty(a.shape, dtype=LIMB, device=a.device)
+    p8, n0 = K.field_words(ctx)
+    lib = K.get_lib()
+    launches["ntt_radix2"] += 1
+    K.check(lib.k4_ntt_radix2(
+        a.data_ptr(), 1 if a.dtype == torch.int16 else 0, out.data_ptr(),
+        twiddles.data_ptr(), a[0].numel() // n, k, p8, n0, K.stream_ptr(a)),
+        "k4_ntt_radix2")
     return out

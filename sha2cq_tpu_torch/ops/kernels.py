@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels (csrc/*.cu).
 
-Route: nvcc compiles every source in csrc/ for sm_90a into one shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers, so
-a build takes seconds).  The library is built at first use into a directory
-that .gitignore lists, keyed by a hash of the sources and flags, and written
+Route: nvcc compiles every source in csrc/ for sm_90a, one nvcc process per
+source, all started together, and links the objects into one shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds).  The library is built at first use into a directory that
+.gitignore lists, keyed by a hash of the sources and flags, and written
 atomically (temp file + os.replace), so a changed source never loads a stale
 binary and concurrent processes never see a half-written one.
 
@@ -31,8 +32,9 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-lineinfo"] + ARCH_FLAGS
+LINK_FLAGS = ["-shared"] + ARCH_FLAGS
 
 _lock = threading.Lock()
 _lib = None
@@ -48,7 +50,7 @@ def _sources():
 
 
 def lib_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for f in sorted(glob.glob(os.path.join(CSRC_DIR, "*"))):
         with open(f, "rb") as fh:
             h.update(os.path.basename(f).encode())
@@ -73,15 +75,44 @@ def build(verbose: bool = False) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) + \
-        ["-I", CSRC_DIR, "-o", tmp] + _sources()
+    objdir = f"{tmp}.objs"
+    os.makedirs(objdir, exist_ok=True)
+    compiler = nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
-    os.replace(tmp, out)
+    jobs = []
+    try:
+        for src in _sources():
+            obj = os.path.join(objdir, os.path.basename(src) + ".o")
+            cmd = [compiler] + NVCC_FLAGS + \
+                (["-Xptxas", "-v"] if verbose else []) + \
+                ["-I", CSRC_DIR, "-c", "-o", obj, src]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs, failed = [], []
+        for src, _obj, proc in jobs:      # wait for every compile
+            _out, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} ({proc.returncode}):"
+                              f"\n{err[-8000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        res = subprocess.run([compiler] + LINK_FLAGS + ["-o", tmp] +
+                             [obj for _src, obj, _p in jobs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr[-8000:]}")
+        os.replace(tmp, out)
+    finally:
+        for _src, _obj, proc in jobs:     # none outlives a failed build
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(objdir, ignore_errors=True)
     build_info.update(seconds=time.perf_counter() - t0, path=out,
-                      log=res.stderr)
+                      log="".join(logs))
     return out
 
 
@@ -96,6 +127,9 @@ def _bind(lib):
     lib.k3_h_vm_run.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, cl, ci, ci,
                                 vp, ctypes.c_uint32, vp]
     lib.k3_h_vm_run.restype = ci
+    lib.k4_ntt_radix2.argtypes = [vp, ci, vp, vp, cl, ci, vp,
+                                  ctypes.c_uint32, vp]
+    lib.k4_ntt_radix2.restype = ci
     return lib
 
 

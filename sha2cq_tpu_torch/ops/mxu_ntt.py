@@ -15,8 +15,15 @@ run the plain versions.  Unlike the reference's TPU layout, the twiddle of a
 batched level is indexed in place (mult_major), so no level transposes its
 input to reach a periodic twiddle block.
 
-Plans (digit matrices, twiddle tensors) are built on the host in numpy,
-bit-identical to the reference and stored in the same npz cache format.
+Plans (digit matrices, twiddle tensors) are built where they are used, at
+the reference's thresholds: for a CUDA device a digit matrix with m >= 64
+and an Fr twiddle tensor with m2*m1 >= 2^16 are built on the card from one
+row of powers (row scans of Montgomery multiplies, kernel K1, and 32
+byte-shift passes), the reference's _digit_matrix_build_jit /
+_twiddle_build_jit, instead of a 268 MB host build and copy; every other
+plan is built on the host in numpy (native Fr kernels, the reference's npz
+cache format).  Both routes give bit-identical tensors: every value is a
+canonical field element, and canonical forms are unique.
 """
 from __future__ import annotations
 
@@ -58,10 +65,10 @@ class NttPlan(NamedTuple):
     res_rowsum: torch.Tensor
     twiddles: Tuple[torch.Tensor, ...]   # per level: (16, m2, m1) Montgomery
 
-    def to(self, device) -> "NttPlan":
-        return NttPlan(self.base_mat.to(device), self.base_rowsum.to(device),
-                       self.res_mat.to(device), self.res_rowsum.to(device),
-                       tuple(t.to(device) for t in self.twiddles))
+
+# Card-route thresholds (the reference's, mxu_ntt.py:169 and :203).
+DEVICE_MATRIX_MIN_M = 64
+DEVICE_TWIDDLE_MIN = 1 << 16
 
 
 # ------------------------- host-side precomputation --------------------------
@@ -138,18 +145,14 @@ def _dft_digit_matrix_np(m: int, omega: int, p: int):
     return mat, rowsum
 
 
-@functools.lru_cache(maxsize=16)
-def _dft_digit_matrix(m: int, omega: int, p_name: str):
-    ctx = D.ctx_for(p_name)
-    mat, rowsum = _dft_digit_matrix_np(m, omega % ctx.p, ctx.p)
+def _digit_matrix_host(m: int, omega: int, ctx):
+    mat, rowsum = _dft_digit_matrix_np(m, omega, ctx.p)
     return torch.from_numpy(np.ascontiguousarray(mat)), \
         torch.from_numpy(np.ascontiguousarray(rowsum))
 
 
-@functools.lru_cache(maxsize=32)
-def _twiddle_tensor(omega: int, m2: int, m1: int, p_name: str) -> torch.Tensor:
-    """(16, m2, m1) Montgomery-form T[k2, t1] = omega^{k2*t1}."""
-    ctx = D.ctx_for(p_name)
+def _twiddle_tensor_host(omega: int, m2: int, m1: int, ctx) -> torch.Tensor:
+    """(16, m2, m1) Montgomery-form T[k2, t1] = omega^{k2*t1}, big ints."""
     p = ctx.p
     w_t1 = np.empty(m1, dtype=object)
     cur = 1
@@ -165,14 +168,112 @@ def _twiddle_tensor(omega: int, m2: int, m1: int, p_name: str) -> torch.Tensor:
     return torch.from_numpy(packed.reshape(NLIMB, m2, m1).astype(np.int32))
 
 
-@functools.lru_cache(maxsize=64)
-def get_plan(n: int, omega: int, p_name: str = "Fr",
-             max_m: int = MAX_MATMUL):
-    """Build (and cache) the CPU-tensor plan for a size-n NTT at omega.
-    Returns (NttPlan, res_omega): res_omega is not None when the residual
-    level (m <= 8) runs as butterflies instead of a digit matmul."""
+# --------------------------- on-device precomputation ------------------------
+
+def _row_scan(first: torch.Tensor, step_row: torch.Tensor, rows: int,
+              ctx) -> torch.Tensor:
+    """(16, rows, m) tensor whose row i is first * step^i (Montgomery
+    products; step_row (16, m) in Montgomery form, so each row keeps the
+    form of `first`).  Doubling: rows [h, 2h) are rows [0, h) times the
+    Montgomery row step^h, so log2(rows) launches of K1 on a card."""
+    m = step_row.shape[1]
+    out = torch.empty((NLIMB, rows, m), dtype=LIMB, device=step_row.device)
+    out[:, 0] = first
+    done, power = 1, step_row                   # power = step^done
+    while done < rows:
+        h = min(done, rows - done)
+        out[:, done:done + h] = D.mont_mul(out[:, :h], power[:, None, :], ctx)
+        done += h
+        if done < rows:
+            power = D.mont_mul(power, power, ctx)
+    return out
+
+
+def dft_digit_matrix_dev(m: int, omega: int, ctx, device):
+    """The (32m, 32m) int8 digit matrix and its (32m,) int32 row sums built
+    on `device` from the (16, m) row [omega^j R]_j, bit-identical to the host
+    build (the reference's _digit_matrix_build_jit): W[i, j] = omega^{ij} in
+    standard form by a row scan of Montgomery multiplies (standard times
+    Montgomery stays standard), then 32 byte-shift passes, each a
+    Montgomery multiply by [256 R] (i.e. times 256 mod p) whose two 8-bit
+    halves of each 16-bit limb are digit planes s = 2t, 2t + 1."""
+    p = ctx.p
+    pows = [1] * m
+    for j in range(1, m):
+        pows[j] = pows[j - 1] * omega % p
+    wm_row = D.pack(pows, ctx, mont=True, device=device)        # omega^j R
+    c256 = D.pack_scalar(256 * ctx.r % p, ctx, mont=False,
+                         device=device).reshape(NLIMB, 1, 1)
+    one = torch.zeros((NLIMB, m), dtype=LIMB, device=device)
+    one[0] = 1                                                 # standard 1
+    v = _row_scan(one, wm_row, m, ctx)                         # (16, i, j)
+    mat = torch.empty((NDIG, m, m, NDIG), dtype=torch.int8, device=device)
+    for b in range(NDIG):                                      # [s, i, j, b]
+        planes = torch.stack([v & 0xFF, (v >> 8) & 0xFF], dim=1)
+        mat[..., b] = (planes.reshape(NDIG, m, m) - 128).to(torch.int8)
+        if b < NDIG - 1:
+            v = D.mont_mul(v, c256, ctx)
+    mat = mat.reshape(NDIG * m, m * NDIG)
+    return mat, mat.sum(dim=1, dtype=torch.int32)
+
+
+def twiddle_tensor_dev(omega: int, m2: int, m1: int, ctx, device):
+    """(16, m2, m1) Montgomery T[k2, t1] = omega^{k2*t1} R built on `device`
+    from the (16, m1) row [omega^{t1} R] by a row scan of Montgomery
+    multiplies (the reference's _twiddle_build_jit), bit-identical to the
+    host build."""
+    p = ctx.p
+    pows = [1] * m1
+    for j in range(1, m1):
+        pows[j] = pows[j - 1] * omega % p
+    wm_row = D.pack(pows, ctx, device=device)
+    one = torch.as_tensor(ctx.r_limbs.astype(np.int32), device=device)
+    return _row_scan(one[:, None].expand(NLIMB, m1), wm_row, m2, ctx)
+
+
+# ----------------------------------- plans -----------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _dft_digit_matrix(m: int, omega: int, p_name: str, device: str):
     ctx = D.ctx_for(p_name)
     omega %= ctx.p
+    if torch.device(device).type == "cuda" and m >= DEVICE_MATRIX_MIN_M:
+        return dft_digit_matrix_dev(m, omega, ctx, device)
+    mat, rowsum = _digit_matrix_host(m, omega, ctx)
+    return mat.to(device), rowsum.to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _twiddle_tensor(omega: int, m2: int, m1: int, p_name: str,
+                    device: str) -> torch.Tensor:
+    ctx = D.ctx_for(p_name)
+    omega %= ctx.p
+    if torch.device(device).type == "cuda" and ctx.name == "Fr" and \
+            m2 * m1 >= DEVICE_TWIDDLE_MIN:
+        return twiddle_tensor_dev(omega, m2, m1, ctx, device)
+    return _twiddle_tensor_host(omega, m2, m1, ctx).to(device)
+
+
+def plan_on(n: int, omega: int, device, p_name: str = "Fr",
+            max_m: int = MAX_MATMUL):
+    """The plan for a size-n NTT at omega, its tensors on `device`: built
+    there (a CUDA device, by the thresholds above) or on the host and
+    copied, once per device.  Returns (NttPlan, res_omega): res_omega is not
+    None when the residual level (m <= 8) runs as butterflies instead of a
+    digit matmul."""
+    return _get_plan(n, omega % D.ctx_for(p_name).p, p_name, max_m,
+                     D.device_key(device))
+
+
+def get_plan(n: int, omega: int, p_name: str = "Fr",
+             max_m: int = MAX_MATMUL):
+    """The host (CPU tensor) plan, as the reference's get_plan."""
+    return plan_on(n, omega, "cpu", p_name, max_m)
+
+
+@functools.lru_cache(maxsize=64)
+def _get_plan(n: int, omega: int, p_name: str, max_m: int, device: str):
+    ctx = D.ctx_for(p_name)
     twiddles = []
     m, w = n, omega
     base = None
@@ -180,32 +281,19 @@ def get_plan(n: int, omega: int, p_name: str = "Fr",
         m2 = max_m
         m1 = m // m2
         if base is None:
-            base = _dft_digit_matrix(m2, pow(w, m1, ctx.p), ctx.name)
-        twiddles.append(_twiddle_tensor(w, m2, m1, ctx.name))
+            base = _dft_digit_matrix(m2, pow(w, m1, ctx.p), ctx.name, device)
+        twiddles.append(_twiddle_tensor(w, m2, m1, ctx.name, device))
         m, w = m1, pow(w, m2, ctx.p)
     if m <= 8 and twiddles:
         return NttPlan(base_mat=base[0], base_rowsum=base[1],
                        res_mat=base[0], res_rowsum=base[1],
                        twiddles=tuple(twiddles)), w
-    res = _dft_digit_matrix(m, w, ctx.name)
+    res = _dft_digit_matrix(m, w, ctx.name, device)
     if base is None:
         base = res
     return NttPlan(base_mat=base[0], base_rowsum=base[1],
                    res_mat=res[0], res_rowsum=res[1],
                    twiddles=tuple(twiddles)), None
-
-
-_device_plans: dict = {}
-
-
-def plan_on(n: int, omega: int, device, p_name: str = "Fr",
-            max_m: int = MAX_MATMUL):
-    """get_plan with its tensors on `device` (cached per device)."""
-    plan, res_omega = get_plan(n, omega, p_name, max_m)
-    key = (n, omega, p_name, max_m, str(device))
-    if key not in _device_plans:
-        _device_plans[key] = plan.to(device)
-    return _device_plans[key], res_omega
 
 
 # ------------------------------ device pipeline ------------------------------
@@ -238,23 +326,34 @@ def _dft_planes(a: torch.Tensor, mat: torch.Tensor,
     return O.reshape(NDIG, m, B)
 
 
+@functools.lru_cache(maxsize=32)
+def _small_consts(m: int, omega: int, p_name: str, device: str):
+    """Bit-reversal index and per-stage (16, half) twiddles of _dft_small,
+    on `device` once (a host copy per call would synchronise the stream)."""
+    ctx = D.ctx_for(p_name)
+    k = m.bit_length() - 1
+    perm = [int(f"{i:0{k}b}"[::-1], 2) if k else 0 for i in range(m)]
+    tws = [D.pack([pow(omega, (j * (m >> (s + 1))) % m, ctx.p)
+                   for j in range(1 << s)], ctx, device=device)
+           for s in range(k)]
+    return torch.tensor(perm, device=device), tws
+
+
 def _dft_small(a: torch.Tensor, omega: int, ctx) -> torch.Tensor:
     """Tiny-m DFT (m <= 8) as radix-2 butterflies along axis 1 (inputs
     canonical, as they come from the twiddle multiply)."""
     m, B = a.shape[1], a.shape[2]
     k = m.bit_length() - 1
-    perm = [int(f"{i:0{k}b}"[::-1], 2) if k else 0 for i in range(m)]
-    a = a[:, torch.tensor(perm, device=a.device)]
+    perm, stage_tws = _small_consts(m, omega % ctx.p, ctx.name,
+                                    D.device_key(a.device))
+    a = a[:, perm]
     for s in range(k):
         half = 1 << s
         blocks = m >> (s + 1)
         v = a.reshape(NLIMB, blocks, 2, half, B)
         top = v[:, :, 0]
         bot = v[:, :, 1]
-        tw_exps = [(j * (m >> (s + 1))) % m for j in range(half)]
-        tws = D.pack([pow(omega, e, ctx.p) for e in tw_exps], ctx,
-                     device=a.device)                           # (16, half)
-        t = D.mont_mul(bot, tws[:, None, :, None], ctx)
+        t = D.mont_mul(bot, stage_tws[s][:, None, :, None], ctx)
         a = torch.stack([D.add(top, t, ctx), D.sub(top, t, ctx)], dim=2) \
             .reshape(NLIMB, m, B)
     return a
@@ -285,8 +384,16 @@ def _dft_axis1(a: torch.Tensor, plan: NttPlan, level: int, ctx, max_m: int,
     return g.reshape(NLIMB, m1 * m2, B)                        # k = k1*m2 + k2
 
 
+@functools.lru_cache(maxsize=64)
+def _scalar_on(v: int, p_name: str, device: str) -> torch.Tensor:
+    return D.pack_scalar(v, D.ctx_for(p_name), device=device)
+
+
 def _scalar(v: int, ctx, device) -> torch.Tensor:
-    return D.pack_scalar(v, ctx, device=device)
+    """(16, 1) Montgomery limbs of v on `device`, packed and copied once per
+    (value, device): a copy from host memory per call would synchronise the
+    stream inside every NTT."""
+    return _scalar_on(v % ctx.p, ctx.name, D.device_key(device))
 
 
 def mxu_ntt(a: torch.Tensor, omega: int, k: int, max_m: Optional[int] = None,
@@ -294,7 +401,7 @@ def mxu_ntt(a: torch.Tensor, omega: int, k: int, max_m: Optional[int] = None,
     """Forward NTT of a (16, n) Montgomery limb tensor: coeffs -> evals in
     natural order (the reference's contract)."""
     max_m = max_m or auto_max_m(1 << k)
-    plan, res_omega = plan_on(1 << k, omega % ctx.p, a.device, ctx.name, max_m)
+    plan, res_omega = plan_on(1 << k, omega, a.device, ctx.name, max_m)
     one = _scalar(1, ctx, a.device)                            # Montgomery one
     n = a.shape[1]
     out = _dft_axis1(a.reshape(NLIMB, n, 1), plan, 0, ctx, max_m, res_omega,
@@ -307,10 +414,9 @@ def mxu_intt(a: torch.Tensor, omega_inv: int, k: int, divisor_inv: int,
     """Inverse NTT: evals -> coeffs scaled by divisor_inv (= 1/n).  The
     Montgomery multiply by the divisor both reduces mod p and scales."""
     max_m = max_m or auto_max_m(1 << k)
-    plan, res_omega = plan_on(1 << k, omega_inv % ctx.p, a.device, ctx.name,
-                              max_m)
+    plan, res_omega = plan_on(1 << k, omega_inv, a.device, ctx.name, max_m)
     n = a.shape[1]
-    d = _scalar(divisor_inv % ctx.p, ctx, a.device)
+    d = _scalar(divisor_inv, ctx, a.device)
     out = _dft_axis1(a.reshape(NLIMB, n, 1), plan, 0, ctx, max_m, res_omega, d)
     return out.reshape(NLIMB, n)
 
@@ -336,8 +442,7 @@ def mxu_ntt_batch_mapped(a: torch.Tensor, plan: NttPlan, res_omega, ctx=FR,
     if C == 0:
         return out
     if scale is None:
-        scale = torch.as_tensor(ctx.r_limbs.astype(np.int32),
-                                device=a.device).reshape(NLIMB, 1)
+        scale = _scalar(1, ctx, a.device)                      # Montgomery one
     for lo in range(0, C, chunk):
         x = CF.as_limbs32(a[:, lo:lo + chunk])
         cb = x.shape[1]

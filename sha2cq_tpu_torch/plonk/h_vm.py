@@ -197,8 +197,8 @@ def assemble_h_program(pk, rot_scale: "int | None" = None) -> Program:
     resulting h values — and proofs — are identical.
 
     rot_scale: roll step per base-domain rotation.  Default = ext/n (the
-    program runs over the full extended coset).  A coset-streamed h (the
-    reference's h_coset_fn; not ported yet) passes 1: each of the ext/n
+    program runs over the full extended coset).  The coset-streamed h
+    (device_eval.HFn's coset route) passes 1: each of the ext/n
     cosets is a rotation-closed n-row slice, so base rotations roll by
     exactly one row within it."""
     cs = pk.vk.cs
@@ -474,3 +474,30 @@ def vm_run(prog: LoadedProgram, groups: Dict[str, torch.Tensor],
         (ctypes.c_int * 8)(*is16), out.data_ptr(), n, prog.out_reg,
         prog.n_reg, p8, n0, K.stream_ptr(out)), "k3_h_vm_run")
     return out
+
+
+def build_groups(state: Dict[str, torch.Tensor],
+                 consts: Dict[str, torch.Tensor],
+                 size: int) -> Dict[str, torch.Tensor]:
+    """The VM's column groups, GROUPS-keyed, from converted coset state
+    ("advice", "instance", "z", "lk", "st") and per-pk constants ("fixed",
+    "sigma" and the stacked (16, 4, size) "aux": l0, l_last, l_active,
+    ZETA * coset points), each (16, C, size).  An empty group becomes one
+    zero column, as in the reference's _build_groups (the program never
+    loads it; K3 indexes every group)."""
+    def pad1(a):
+        if a.shape[1]:
+            return a
+        return torch.zeros((NLIMB, 1, size), dtype=a.dtype, device=a.device)
+
+    src = {**consts, **state}
+    return {name: pad1(src[name]) for name in GROUPS}
+
+
+def run_program(prog: LoadedProgram, state: Dict[str, torch.Tensor],
+                consts: Dict[str, torch.Tensor], scal: torch.Tensor,
+                size: int) -> torch.Tensor:
+    """Evaluate a loaded program against converted coset state and per-pk
+    constants over `size` rows; returns the (16, size) h values (before the
+    quotient).  The counterpart of the reference's run_program."""
+    return vm_run(prog, build_groups(state, consts, size), scal)

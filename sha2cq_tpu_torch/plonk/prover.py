@@ -132,15 +132,17 @@ class _WitnessCollection:
         pass
 
 
-def prewarm_prover(pk, device):
+def prewarm_prover(pk, device, h_mxu: Optional[bool] = None,
+                   h_cosets: Optional[bool] = None):
     """Build the device h module for this proving key on `device` (per-pk
-    constants, NTT plans, the h program) and, on a CUDA device, build and
-    load the kernel library, so the first create_proof(h_device=True) runs
-    at the warm rate.  Idempotent per (pk, device); returns the module."""
+    constants, NTT plans, the h program) for the route h_mxu / h_cosets
+    select (as in create_proof) and, on a CUDA device, build and load the
+    kernel library, so the first create_proof(h_device=True) runs at the
+    warm rate.  Idempotent per (pk, device, route); returns the module."""
     import torch
 
     from .device_eval import get_h_fn
-    fn = get_h_fn(pk, device)
+    fn = get_h_fn(pk, device, h_mxu, h_cosets)
     if torch.device(device).type == "cuda":
         from ..ops import kernels
         kernels.get_lib()
@@ -150,12 +152,27 @@ def prewarm_prover(pk, device):
 def create_proof(params, pk: ProvingKey, circuits: Sequence, instances,
                  rng=None, transcript: Optional[Blake2bWrite] = None,
                  multiopen: str = "gwc", h_device: bool = False,
-                 device=None) -> bytes:
+                 device=None, mesh=None, h_mxu: Optional[bool] = None,
+                 h_cosets: Optional[bool] = None) -> bytes:
     """instances: per-circuit list of per-column instance value lists.
 
     h_device: evaluate h on the torch `device` ("cuda", "cuda:0", "cpu"),
     which must then be given explicitly: nothing probes for a card, and
-    nothing moves to the CPU unasked."""
+    nothing moves to the CPU unasked.
+
+    h_mxu: force the digit-matmul NTT route of the device h on or off
+    (None = auto: on for k >= 12, the butterfly NTT below), as in the
+    reference.  h_cosets: force the coset-streamed digit-matmul h on or off
+    (None = auto: on at extended size >= 2^19); it takes the place of the
+    reference's SHA2CQ_H_COSETS environment switch.  The proof's bytes do
+    not depend on the route.
+
+    mesh: multi-device proving is not ported (ROADMAP, multi-device on
+    torch.distributed) and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "create_proof(mesh=...): multi-device proving is not ported "
+            "(ROADMAP: multi-device on torch.distributed)")
     if h_device and device is None:
         raise ValueError("create_proof(h_device=True) needs an explicit device")
     rng = rng or _SystemRng()
@@ -323,7 +340,7 @@ def create_proof(params, pk: ProvingKey, circuits: Sequence, instances,
 
         dev = torch.device(device)
         with profiler.phase("h_fn_build"):
-            h_fn = get_h_fn(pk, dev)
+            h_fn = get_h_fn(pk, dev, h_mxu, h_cosets)
         ncols = cs.num_advice_columns
         h_bufs = []
         advice_coeff = []

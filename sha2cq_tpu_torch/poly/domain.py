@@ -1,15 +1,16 @@
 """EvaluationDomain of the port (counterpart of sha2cq_tpu/poly/domain.py).
 
 The 2^k base domain and the ZETA-coset extended domain, with the same
-constants and host (int list) transforms as the reference.  Of the device
-methods only `_zeta_pattern` is ported (a limb tensor; the h path's ZETA
-pre- and post-multiply).  The reference's butterfly batch transforms
-(`lagrange_to_coeff_batch`, `coeff_to_extended_batch`, ...) are not ported
-yet (ROADMAP): the port's device transforms are ops/mxu_ntt.py.
+constants and host (int list) transforms as the reference, and its device
+transforms over limb tensors on an explicit device (the tensor's own):
+`lagrange_to_coeff`, `coeff_to_lagrange`, `coeff_to_extended`,
+`extended_to_coeff`, `divide_by_vanishing_poly`, the batched
+`lagrange_to_coeff_batch` / `coeff_to_extended_batch`, and
+`rotate_extended`.  They run the butterfly NTT of ops/ntt.py (kernel K4 on a
+card) and are the h path's butterfly route (plonk/device_eval.py).
 """
 from __future__ import annotations
 
-import functools
 from typing import List, Sequence
 
 import torch
@@ -94,15 +95,85 @@ class EvaluationDomain:
         powers = (1, c1, c2)
         return [v * powers[i % 3] % P for i, v in enumerate(a)]
 
-    # ---------------- device limb tensors -----------------------------------
+    # ---------------- device ((16, ..., n) limb tensor) paths ---------------
+    # Each method runs on its input's device: the butterfly NTT (ops/ntt.py:
+    # kernel K4 on CUDA) and the Montgomery multiply (K1 on CUDA); the
+    # constants they need are built once per device.
 
-    @functools.lru_cache(maxsize=8)
-    def _zeta_pattern(self, n: int, into: bool) -> torch.Tensor:
-        """(16, n) Montgomery limbs of [1, c1, c2, 1, c1, c2, ...] (CPU; the
-        h module copies it to its device)."""
-        c1, c2 = (self.g_coset, self.g_coset_inv) if into else (self.g_coset_inv, self.g_coset)
-        reps = [1, c1, c2] * (n // 3 + 1)
-        return D.pack(reps[:n], D.FR)
+    def lagrange_to_coeff(self, values: torch.Tensor) -> torch.Tensor:
+        out = NTT.ntt_last_axis(
+            values, NTT.twiddle_table(self.omega_inv, self.k, "Fr", values.device),
+            self.k)
+        return D.mont_mul(out, self._const(self.ifft_divisor, values.device), D.FR)
+
+    def coeff_to_lagrange(self, coeffs: torch.Tensor) -> torch.Tensor:
+        return NTT.ntt(coeffs, self.omega, self.k)
+
+    def coeff_to_extended(self, coeffs: torch.Tensor) -> torch.Tensor:
+        a = D.mont_mul(coeffs, self._zeta_pattern(self.n, True, coeffs.device), D.FR)
+        a = torch.nn.functional.pad(a, (0, self.extended_n - self.n))
+        return NTT.ntt(a, self.extended_omega, self.extended_k)
+
+    def extended_to_coeff(self, values: torch.Tensor) -> torch.Tensor:
+        a = NTT.ntt_last_axis(
+            values, NTT.twiddle_table(self.extended_omega_inv, self.extended_k,
+                                      "Fr", values.device),
+            self.extended_k)
+        a = D.mont_mul(a, self._const(self.extended_ifft_divisor, values.device), D.FR)
+        a = D.mont_mul(a, self._zeta_pattern(self.extended_n, False, values.device),
+                       D.FR)
+        return a[..., : self.n * self.quotient_poly_degree]
+
+    def divide_by_vanishing_poly(self, values: torch.Tensor) -> torch.Tensor:
+        return D.mont_mul(values, self._vanishing_table(values.device), D.FR)
+
+    def lagrange_to_coeff_batch(self, values: torch.Tensor) -> torch.Tensor:
+        """(16, C, n) -> coeff form, one batched call for all C columns."""
+        out = NTT.ntt_last_axis(
+            values, NTT.twiddle_table(self.omega_inv, self.k, "Fr", values.device),
+            self.k)
+        return D.mont_mul(out, self._const(self.ifft_divisor, values.device)[:, None, :],
+                          D.FR)
+
+    def coeff_to_extended_batch(self, coeffs: torch.Tensor) -> torch.Tensor:
+        """(16, C, n) -> extended coset evaluations (16, C, extended_n)."""
+        a = D.mont_mul(coeffs, self._zeta_pattern(self.n, True, coeffs.device)[:, None, :],
+                       D.FR)
+        a = torch.nn.functional.pad(a, (0, self.extended_n - self.n))
+        return NTT.ntt_last_axis(
+            a, NTT.twiddle_table(self.extended_omega, self.extended_k, "Fr", a.device),
+            self.extended_k)
+
+    def rotate_extended(self, values: torch.Tensor, rotation: int) -> torch.Tensor:
+        shift = (1 << (self.extended_k - self.k)) * rotation
+        return torch.roll(values, -shift, dims=1)
+
+    def _zeta_pattern(self, n: int, into: bool, device="cpu") -> torch.Tensor:
+        """(16, n) Montgomery limbs of [1, c1, c2, 1, c1, c2, ...]."""
+        c1, c2 = (self.g_coset, self.g_coset_inv) if into else \
+            (self.g_coset_inv, self.g_coset)
+        return self._on_device(("zeta", n, into), device,
+                               lambda: ([1, c1, c2] * (n // 3 + 1))[:n])
+
+    def _const(self, v: int, device="cpu") -> torch.Tensor:
+        """(16, 1) Montgomery limbs of the scalar v."""
+        return self._on_device(("scalar", v % P), device, lambda: [v % P])
+
+    def _vanishing_table(self, device="cpu") -> torch.Tensor:
+        """(16, extended_n) Montgomery limbs of t_evaluations_inv, tiled."""
+        t = self.t_evaluations_inv
+        return self._on_device(("vanishing",), device,
+                               lambda: t * (self.extended_n // len(t)))
+
+    def _on_device(self, key: tuple, device, values) -> torch.Tensor:
+        """The packed limbs of values() on `device`, built once per (key,
+        device): device methods called per prove copy nothing from the
+        host."""
+        cache = self.__dict__.setdefault("_device_consts", {})
+        dkey = (key, D.device_key(device))
+        if dkey not in cache:
+            cache[dkey] = D.pack(values(), D.FR, device=device)
+        return cache[dkey]
 
     # ---------------- scalar helpers (host ints) ----------------------------
 

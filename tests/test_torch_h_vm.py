@@ -11,6 +11,7 @@ from sha2cq_tpu.fields.host import FR_MOD as P
 from sha2cq_tpu.plonk import h_vm as JV
 from sha2cq_tpu_torch import compat
 from sha2cq_tpu_torch.plonk import h_vm as TV
+from tests.test_torch_mxu_ntt import one_torch_thread  # noqa: F401
 
 K_SHA = 9
 

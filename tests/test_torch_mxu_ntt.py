@@ -24,6 +24,19 @@ from sha2cq_tpu_torch.ops import ntt as TNTT
 SHAPES = [(4, 16), (10, 32), (6, 8), (9, 16)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a port test module's torch ops on one intra-op thread.  The
+    suite runs several pytest workers on one host; torch's OpenMP threads in
+    each of them would oversubscribe the cores, and the plain kernels'
+    many small ops then slow down by an order of magnitude.  Every port
+    test module imports this fixture."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _omega(k):
     w = FR_ROOT_OF_UNITY
     for _ in range(k, FR_S):

@@ -13,7 +13,7 @@ from sha2cq_tpu.ops import mxu_ntt as JM
 from sha2cq_tpu_torch import compat
 from sha2cq_tpu_torch.fields import device as TD
 from sha2cq_tpu_torch.ops import mxu_ntt as TM
-from tests.test_torch_mxu_ntt import _omega, _rand
+from tests.test_torch_mxu_ntt import _omega, _rand, one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("k,max_m", [(6, 8), (10, 32)])

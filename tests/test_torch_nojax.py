@@ -54,6 +54,36 @@ def test_main_path_imports_without_jax():
     assert res.stdout.strip().splitlines()[-1] == "[[], []]"
 
 
+ROUTES_PROBE = """
+import json, sys
+sys.modules["jax"] = None
+from sha2cq_tpu_torch import compat as C
+from sha2cq_tpu_torch.plonk import device_eval as DE
+case = C.build_simple(C.PORT, 4, 31)
+outs = [C.h_forward(case.pk, "cpu", 3, use_mxu=m, cosets=c)
+        for m, c in ((False, None), (True, False), (True, True))]
+routes = sorted(r for _, r in case.pk.__dict__["_torch_h_fns"])
+same = all(x.long().equal(y.long()) for o in outs[1:]
+           for x, y in zip(o, outs[0]))
+loaded = [m for m, mod in sys.modules.items() if mod is not None]
+print(json.dumps([routes, same] + [
+    sorted(m for m in loaded if m.split(".")[0] == root)
+    for root in ("sha2cq_tpu", "jax")]))
+"""
+
+
+def test_three_h_routes_run_without_jax():
+    """The butterfly, monolithic and coset-streamed h modules build and run
+    with jax blocked (ops.ntt, poly.domain, ops.mxu_ntt, plonk.h_vm and
+    plonk.device_eval included), and agree."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", ROUTES_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == \
+        '[["butterfly", "coset", "monolithic"], true, [], []]'
+
+
 def test_no_port_file_imports_jax():
     pkg = os.path.dirname(sha2cq_tpu_torch.__file__)
     pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)

@@ -5,6 +5,7 @@ the proofs must be byte-identical, and the port's verifier accepts them."""
 import pytest
 
 from sha2cq_tpu_torch import compat as C
+from tests.test_torch_mxu_ntt import one_torch_thread  # noqa: F401
 
 
 def _check(ref_case, port_case, seed):
