@@ -18,7 +18,12 @@ catches an error and goes on):
    main path's shapes, bit for bit, with both times (CUDA events), its
    bound (the larger of its bytes over the HBM rate and its 32-bit
    multiply-adds over the card's integer multiply-add rate) and its share
-   of the bound; K3 on the SHA-256 program at the k=13 shape (16384
+   of the bound: K2 at the k=18 coset route's (32, 512, 2048) in all four
+   multiplier modes and at the k=13 residual level's (32, 32, 32768); K4
+   at the k=13 c2e batch, one column and int16 input, at the k=9
+   butterfly route's l2c, c2e and e2c shapes, and on one 64-column chunk
+   at k=18's extended size 2^19 (8 columns held against the plain
+   version); K3 on the SHA-256 program at the k=13 shape (16384
    extended rows) and at the k=18 coset shape (2^18 rows, the rot_scale=1
    program); the NTT plans built on the card (the m=512 digit matrix, the
    k=18 c2e twiddle tensor) against the host-built ones, bit for bit, with
@@ -53,6 +58,7 @@ import ctypes
 import gc
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -112,6 +118,29 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over iters calls captured in one CUDA graph
+    and replayed: no host work between launches, so a kernel that takes
+    less time than its wrapper's Python is timed on the card alone."""
+    import torch
+    fn()                               # builds and caches outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def timed_once(fn):
     """(fn(), its device ms) for one call: for plain versions too slow to
     run twice."""
@@ -148,10 +177,11 @@ def load_parent_kernels(parent: str):
     return mod
 
 
-def alternate(tag, old_fn, new_fn, iters, **shape):
+def alternate(tag, old_fn, new_fn, iters, timer=cuda_time_ms, **shape):
     """Old and new timed in turns (old, new, new, old) on the same inputs."""
-    times = [cuda_time_ms(f, iters) for f in (old_fn, new_fn, new_fn, old_fn)]
-    say("parent_vs_new", kernel=tag, old_ms=[times[0], times[3]],
+    times = [timer(f, iters) for f in (old_fn, new_fn, new_fn, old_fn)]
+    say("parent_vs_new", kernel=tag, timer=timer.__name__,
+        old_ms=[times[0], times[3]],
         new_ms=[times[1], times[2]],
         speedup=(times[0] + times[3]) / (times[1] + times[2]), **shape)
 
@@ -314,89 +344,127 @@ def main() -> None:
            shape=[16, 64, 8192], mode="row")
     del a, b, x, row, out, ref
 
-    M, X = 512, 2048
-    planes = torch.randint(0, (1 << 31) - 1, (32, M, X), generator=gen,
-                           dtype=torch.int32).to(dev)
-    modes = {    # name: (multiplier, flags, multiplier elements)
-        "tile": (rand_limbs(gen, (M, X), dev, p), {}, M * X),
-        "minor": (rand_limbs(gen, (M, 32), dev, p), {"mult_minor": 32}, M * 32),
-        "major": (rand_limbs(gen, (M, 32), dev, p), {"mult_major": 64}, M * 32),
-        "scalar": (rand_limbs(gen, (1,), dev, p), {"mult_is_tile": False}, 1),
-    }
-    # per element: the fold's 3x16 + 5x16 32-bit products, then one product
-    k2_mads = M * X * (128 + MONT_MADS)
-    for mode, (mult, kw, n_mult) in modes.items():
-        out = CF.planes_to_limbs_mul(planes, mult, **kw)
-        torch.cuda.synchronize()
-        ref = CF.planes_to_limbs_mul_plain(planes, mult, **kw)
-        record("planes_to_limbs_mul", out, ref,
-               cuda_time_ms(lambda: CF.planes_to_limbs_mul(planes, mult, **kw), 20),
-               cuda_time_ms(lambda: CF.planes_to_limbs_mul_plain(planes, mult, **kw), 2),
-               (32 + 16) * 4 * M * X + 64 * n_mult, k2_mads,
-               shape=[32, M, X], mode=mode,
-               on_h_path=mode in ("major", "scalar"))
-        if plib is not None and mode in ("major", "scalar"):
-            from sha2cq_tpu_torch.ops.cuda_field import _mult_index, fold_consts
-            mls, mms, div, mod = _mult_index(mult, M, X, kw.get(
-                "mult_is_tile", True), kw.get("mult_minor", 0),
-                kw.get("mult_major", 0))
-            folds = K.u32_array([v for r_ in fold_consts(D.FR) for v in r_])
-            old = torch.empty_like(out)
-            alternate("planes_to_limbs_mul", lambda: plib.k2_planes_to_limbs_mul(
-                planes.data_ptr(), mult.data_ptr(), old.data_ptr(), M, X, mls,
-                mms, div, mod, p8, n0, folds, stream()),
-                lambda: CF.planes_to_limbs_mul(planes, mult, **kw), 20,
-                shape=[32, M, X], mode=mode)
-            if not torch.equal(old, out):
-                fail("the parent's K2 and this tree's disagree")
-    del planes, modes, out, ref
+    # K2 at (32, 512, 2048), the k=18 coset route's shape (m2 = 512 rows, a
+    # 4-column chunk times m1 = 512), in every mode, and at (32, 32, 32768),
+    # the k=13 residual level's scalar-mode shape
+    from sha2cq_tpu_torch.ops.cuda_field import _mult_index, fold_consts
+    folds = K.u32_array([v for r_ in fold_consts(D.FR) for v in r_])
 
-    # ---- phase 2b: K4 at the k=13 slice's c2e shapes ---------------------
-    # the coefficient columns of n = 2^13 after the ZETA pre-multiply and
-    # the zero pad to ext = 2^14
+    def k2_mult(mode, M, X):
+        """(multiplier, flags, multiplier elements) of one K2 mode."""
+        shape, kw = {"scalar": ((1,), {"mult_is_tile": False}),
+                     "major": ((M, 32), {"mult_major": X // 32}),
+                     "minor": ((M, 32), {"mult_minor": 32}),
+                     "tile": ((M, X), {})}[mode]
+        return rand_limbs(gen, shape, dev, p), kw, math.prod(shape)
+
+    # tile first: the kernels line reports the first shape recorded, and
+    # keeps reporting tile mode so that its K2 entry stays comparable
+    for M, X, k2_modes in ((512, 2048, ("tile", "minor", "major", "scalar")),
+                           (32, 32768, ("scalar",))):
+        planes = torch.randint(0, (1 << 31) - 1, (32, M, X), generator=gen,
+                               dtype=torch.int32).to(dev)
+        # per element: the word form's 16 products (8 lo/hi pairs), then
+        # one Montgomery product
+        k2_mads = M * X * (16 + MONT_MADS)
+        for mode in k2_modes:
+            mult, kw, n_mult = k2_mult(mode, M, X)
+            out = CF.planes_to_limbs_mul(planes, mult, **kw)
+            torch.cuda.synchronize()
+            ref = CF.planes_to_limbs_mul_plain(planes, mult, **kw)
+            record("planes_to_limbs_mul", out, ref,
+                   cuda_time_ms(lambda: CF.planes_to_limbs_mul(planes, mult, **kw), 20),
+                   cuda_time_ms(lambda: CF.planes_to_limbs_mul_plain(planes, mult, **kw), 2),
+                   (32 + 16) * 4 * M * X + 64 * n_mult, k2_mads,
+                   shape=[32, M, X], mode=mode,
+                   on_h_path=mode in ("major", "scalar"))
+            if plib is not None:
+                mls, mms, div, mod = _mult_index(mult, M, X, kw.get(
+                    "mult_is_tile", True), kw.get("mult_minor", 0),
+                    kw.get("mult_major", 0))
+                old = torch.empty_like(out)
+                alternate("planes_to_limbs_mul", lambda: plib.k2_planes_to_limbs_mul(
+                    planes.data_ptr(), mult.data_ptr(), old.data_ptr(), M, X, mls,
+                    mms, div, mod, p8, n0, folds, stream()),
+                    lambda: CF.planes_to_limbs_mul(planes, mult, **kw), 20,
+                    shape=[32, M, X], mode=mode)
+                if not torch.equal(old, out):
+                    fail("the parent's K2 and this tree's disagree")
+        del planes, mult, out, ref
+
+    # ---- phase 2b: K4 at the butterfly route's shapes --------------------
+    # k=13 slice: the coefficient columns of n = 2^13 after the ZETA
+    # pre-multiply and the zero pad to ext = 2^14 (the c2e batch, one
+    # column, int16 storage in); k=9 (the auto butterfly route): l2c on the
+    # int16 Lagrange stacks, c2e, e2c; k=18: one 64-column chunk at the
+    # extended size 2^19, checked on 8 of its columns
+    t0 = time.perf_counter()
+    small = C.build_sha256(K_SMALL, 1, SEED)
+    small_setup_s = time.perf_counter() - t0
+    widths = list(C.h_input_widths(small.pk).values())
+    l2c_cols, c2e_cols = sum(widths[:4]), sum(widths)
     dom13 = EvaluationDomain(3, K_SLICE)
-    ek = dom13.extended_k
     x = D.mont_mul(rand_limbs(gen, (C2E_COLUMNS, dom13.n), dev, p),
                    dom13._zeta_pattern(dom13.n, True, dev)[:, None, :])
     x = torch.nn.functional.pad(x, (0, dom13.extended_n - dom13.n))
-    tw = NTT.twiddle_table(dom13.extended_omega, ek, "Fr", dev)
-
-    def k4_cost(arg):
+    dom9, dom18 = small.pk.vk.domain, EvaluationDomain(3, K_BIG)
+    k13 = (dom13.extended_omega, dom13.extended_k)
+    k4_cases = [    # (case, input, (omega, k), columns the plain version checks)
+        ("c2e_batch", x, k13, None),
+        ("one_column", x[:, 0].contiguous(), k13, None),
+        ("int16_input", x[:, :8].to(torch.int16), k13, None),
+        ("k9_l2c", rand_limbs(gen, (l2c_cols, dom9.n), dev, p).to(torch.int16),
+         (dom9.omega_inv, dom9.k), None),
+        ("k9_c2e", rand_limbs(gen, (c2e_cols, dom9.extended_n), dev, p),
+         (dom9.extended_omega, dom9.extended_k), None),
+        ("k9_e2c", rand_limbs(gen, (dom9.extended_n,), dev, p),
+         (dom9.extended_omega_inv, dom9.extended_k), None),
+        ("k18_ext_chunk", rand_limbs(gen, (64, dom18.extended_n), dev, p),
+         (dom18.extended_omega, dom18.extended_k), 8),
+    ]
+    del x
+    for case_name, arg, (omega, ek), check_cols in k4_cases:
+        tw = NTT.twiddle_table(omega, ek, "Fr", dev)
         cols = arg[0].numel() >> ek
-        return (arg.element_size() * 16 + 64) * arg[0].numel() + \
-            64 * tw.shape[1], ek * cols * (1 << (ek - 1)) * MONT_MADS
-
-    for shape_name, arg in (("c2e_batch", x), ("one_column", x[:, 0])):
-        arg = arg.contiguous()
+        nbytes = (arg.element_size() * 16 + 64) * arg[0].numel() + 64 * tw.shape[1]
+        mads = ek * cols * (1 << (ek - 1)) * MONT_MADS
+        CF.reset_launches()
         out = CF.ntt_radix2(arg, tw, ek)
         torch.cuda.synchronize()
-        ref = NTT.ntt_last_axis_plain(arg, tw, ek)
-        record("ntt_radix2", out, ref,
-               cuda_time_ms(lambda: CF.ntt_radix2(arg, tw, ek), 20),
-               cuda_time_ms(lambda: NTT.ntt_last_axis_plain(arg, tw, ek), 1),
-               *k4_cost(arg), shape=list(arg.shape), case=shape_name)
-        if plib is not None and shape_name == "c2e_batch":
+        launched = CF.launches["ntt_radix2"]
+        sub = arg if check_cols is None else arg[:, :check_cols]
+        ref, plain_ms = timed_once(lambda: NTT.ntt_last_axis_plain(sub, tw, ek))
+        got = out if check_cols is None else out[:, :check_cols]
+        iters = 20 if cols << ek <= 1 << 22 else 5
+        # eager ms: what a caller pays, the wrapper's Python included;
+        # device_ms: CUDA-graph replays, the card alone (the two part at
+        # the small shapes, where the wrapper takes longer than the kernel)
+        record("ntt_radix2", got, ref,
+               cuda_time_ms(lambda: CF.ntt_radix2(arg, tw, ek), iters),
+               plain_ms, nbytes, mads, shape=list(arg.shape), case=case_name,
+               device_ms=graph_time_ms(lambda: CF.ntt_radix2(arg, tw, ek), iters),
+               passes=NTT.k4_passes(ek, cols), wrapper_calls=launched,
+               plain_columns=check_cols or cols)
+        del ref, got, sub
+        if plib is not None:
             old = torch.empty_like(out)
             alternate("ntt_radix2", lambda: plib.k4_ntt_radix2(
-                arg.data_ptr(), 0, old.data_ptr(), tw.data_ptr(),
-                arg[0].numel() >> ek, ek, p8, n0, stream()),
-                lambda: CF.ntt_radix2(arg, tw, ek), 20, shape=list(arg.shape))
+                arg.data_ptr(), int(arg.dtype == torch.int16), old.data_ptr(),
+                tw.data_ptr(), cols, ek, p8, n0, stream()),
+                lambda: CF.ntt_radix2(arg, tw, ek), iters,
+                timer=graph_time_ms, shape=list(arg.shape), case=case_name)
             if not torch.equal(old, out):
-                fail("the parent's K4 and this tree's disagree")
-    x16 = x[:, :8].to(torch.int16)      # int16 storage in, as the h path has
-    out = CF.ntt_radix2(x16, tw, ek)
-    torch.cuda.synchronize()
-    record("ntt_radix2", out, NTT.ntt_last_axis_plain(x16, tw, ek), None,
-           None, *k4_cost(x16), shape=list(x16.shape), case="int16_input")
-    del x, x16, out, ref
+                fail(f"the parent's K4 and this tree's disagree ({case_name})")
+            del old
+        del out
+        torch.cuda.empty_cache()
+    del k4_cases, arg
+    torch.cuda.empty_cache()
 
     # ---- phase 2c: K3 on the SHA-256 program at both path shapes ---------
     # The programs come from the k=9 key: circuit32 / SCHEME8 has the
     # constraint system of the k=13 and k=18 keys, so the same programs
     # (phases 4 and 5 check that they are).
-    t0 = time.perf_counter()
-    small = C.build_sha256(K_SMALL, 1, SEED)
-    small_setup_s = time.perf_counter() - t0
     k3_programs = {"k13_monolithic": (h_vm.assemble_h_program(small.pk),
                                       1 << (K_SLICE + 1)),
                    "k18_coset": (h_vm.assemble_h_program(small.pk, rot_scale=1),
@@ -436,10 +504,13 @@ def main() -> None:
                                             for g in h_vm.GROUPS])
             arr_c = (ctypes.c_int * 8)(*loaded.cols)
             arr_16 = (ctypes.c_int * 8)(*([1] * 8))     # all int16 here
+            split = loaded.split          # the parent's K3 takes this form
+            starts = (ctypes.c_int * (h_vm.K3_MAX_STREAMS + 1))(*split.starts)
             alternate("h_vm_run", lambda: plib.k3_h_vm_run(
-                loaded.instrs.data_ptr(), ins.shape[0], scal.data_ptr(), nsc,
-                arr_p, arr_c, arr_16, old.data_ptr(), rows, prog.out_reg,
-                prog.n_reg, p8, n0, stream()), k3, iters, shape=[16, rows],
+                loaded.kernel_instrs.data_ptr(), loaded.next_load.data_ptr(),
+                starts, len(split.starts) - 1, scal.data_ptr(), nsc, arr_p,
+                arr_c, arr_16, old.data_ptr(), rows, split.out_reg,
+                split.n_reg, p8, n0, stream()), k3, iters, shape=[16, rows],
                 case=case_name)
             if not torch.equal(old, out):
                 fail("the parent's K3 and this tree's disagree")
@@ -447,7 +518,6 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # ---- phase 2d: NTT plans built on the card against the host ----------
-    dom18 = EvaluationDomain(3, K_BIG)
     w512 = pow(dom13.extended_omega, dom13.extended_n // 512, p)
     t0 = time.perf_counter()
     host_mat, host_rowsum = MX._digit_matrix_host(512, w512, D.FR)

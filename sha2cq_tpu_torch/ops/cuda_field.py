@@ -29,6 +29,7 @@ from ..fields.device import FR, LIMB, MASK, NLIMB
 from . import kernels as K
 
 NDIG = 32
+K2_TILE, K2_MINOR, K2_MAJOR, K2_SCALAR = range(4)   # csrc/planes_to_limbs.cu's K2Mode
 
 # Launch counts, one per kernel: incremented exactly where a kernel launches.
 launches = {"mont_mul": 0, "planes_to_limbs_mul": 0, "h_vm_run": 0,
@@ -151,6 +152,71 @@ def planes_to_limbs_plain(O: torch.Tensor, ctx=FR) -> torch.Tensor:
     return torch.stack(limbs).to(LIMB)
 
 
+def k2_mu(ctx) -> int:
+    """floor(2^288 / p), K2's quotient estimate (csrc/planes_to_limbs.cu);
+    its bounds hold for 2^248 < p < 2^254 (Fr, Fq)."""
+    if ctx.wide or not 1 << 248 < ctx.p < 1 << 254:
+        raise NotImplementedError(
+            f"K2's one-step reduction needs 2^248 < p < 2^254 ({ctx.name})")
+    return (1 << 288) // ctx.p
+
+
+def _umul64hi(t: torch.Tensor, mu: int) -> torch.Tensor:
+    """floor(t * mu / 2^64) for int64 lanes t < 2^56 and mu < 2^48 (CUDA's
+    __umul64hi on K2's operands), exact: schoolbook on 16-bit digits, so
+    every column sum stays below 2^35."""
+    if not 0 <= mu < 1 << 48:
+        raise ValueError("mu must be below 2^48")
+    d = [(t >> (16 * i)) & 0xFFFF for i in range(4)]
+    m = [(mu >> (16 * j)) & 0xFFFF for j in range(3)]
+
+    def column(pos):
+        return sum(d[i] * m[pos - i] for i in range(4) if 0 <= pos - i < 3)
+
+    carry = torch.zeros_like(t)
+    for pos in range(4):          # floor of the columns below 2^64
+        carry = (carry + column(pos)) >> 16
+    return carry + column(4) + (column(5) << 16)
+
+
+def planes_to_words_plain(O: torch.Tensor, ctx=FR) -> torch.Tensor:
+    """Plain mirror of K2's word form (csrc/planes_to_limbs.cu), in int64
+    lanes: (32, M, X) nonnegative int32 planes -> (16, M, X) limbs of
+    v = V - q p, where V = sum_q plane[q] 2^{8q} is built in nine 32-bit
+    words from four funnel-shifted rows and q = floor((V >> 224) mu / 2^64).
+    v has V's residue and is below 2^256 (not the reference's relaxed
+    value: planes_to_limbs_plain is that)."""
+    mu = k2_mu(ctx)
+    pl = O.to(torch.int64)
+    W = 0xFFFFFFFF
+    V = [pl[4 * w] for w in range(8)] + [torch.zeros_like(pl[0])]
+    for b in range(1, 4):
+        A = [(pl[b] << (8 * b)) & W]
+        A += [((pl[4 * w + b] << (8 * b)) & W) | (pl[4 * w - 4 + b] >> (32 - 8 * b))
+              for w in range(1, 8)]
+        A.append(pl[28 + b] >> (32 - 8 * b))
+        carry = 0
+        for w in range(9):                       # one carry chain
+            s = V[w] + A[w] + carry
+            V[w], carry = s & W, s >> 32
+    q = _umul64hi((V[8] << 32) | V[7], mu)
+    pw = [(ctx.p >> (32 * i)) & W for i in range(8)]
+    lo = [(q * pw[i]) & W for i in range(8)]
+    hi = [(q * pw[i]) >> 32 for i in range(8)]
+    borrow = 0
+    for i in range(9):                           # V -= lo
+        d = V[i] - (lo[i] if i < 8 else 0) - borrow
+        V[i], borrow = d & W, (d < 0).to(torch.int64)
+    borrow = 0
+    for i in range(1, 9):                        # V -= hi << 32
+        d = V[i] - hi[i - 1] - borrow
+        V[i], borrow = d & W, (d < 0).to(torch.int64)
+    if bool((V[8] != 0).any()):
+        raise AssertionError("K2's reduction left v >= 2^256")
+    return torch.stack([V[i // 2] >> (16 * (i % 2)) & MASK
+                        for i in range(NLIMB)]).to(LIMB)
+
+
 def _mult_index(mult, M, X, mult_is_tile, mult_minor, mult_major):
     """(limb stride, m stride, div, mod) so that the multiplier of output
     element (m, x) is mult[l, m, (x // div) % mod]."""
@@ -173,8 +239,8 @@ def _mult_index(mult, M, X, mult_is_tile, mult_minor, mult_major):
 
 def planes_to_limbs_mul_plain(O, mult, ctx=FR, mult_is_tile=True,
                               mult_minor=0, mult_major=0):
-    """Plain version of K2: planes -> relaxed limbs -> mont_mul by the
-    multiplier, broadcast as the mode says."""
+    """Plain version of K2: planes -> relaxed limbs (the reference's form)
+    -> mont_mul by the multiplier, broadcast as the mode says."""
     M, X = O.shape[1], O.shape[2]
     _mult_index(mult, M, X, mult_is_tile, mult_minor, mult_major)
     limbs = planes_to_limbs_plain(O, ctx)
@@ -207,8 +273,14 @@ def planes_to_limbs_mul(O: torch.Tensor, mult: torch.Tensor, ctx=FR,
         raise ValueError(f"planes must be (32, M, X) int32, got "
                          f"{tuple(O.shape)} {O.dtype}")
     M, X = O.shape[1], O.shape[2]
+    if M * X >= 1 << 31:
+        raise ValueError(f"K2 indexes in 32 bits: M*X = {M * X}")
     mls, mms, div, mod = _mult_index(mult, M, X, mult_is_tile, mult_minor,
                                      mult_major)
+    mode, period = ((K2_SCALAR, 1) if not mult_is_tile else
+                    (K2_MINOR, mod) if mult_minor else
+                    (K2_MAJOR, div) if mult_major else (K2_TILE, 1))
+    mu = k2_mu(ctx)
     O = O.contiguous()
     mult = as_limbs32(mult).contiguous()
     if mult.device != O.device:
@@ -217,26 +289,38 @@ def planes_to_limbs_mul(O: torch.Tensor, mult: torch.Tensor, ctx=FR,
     if M * X == 0:
         return out
     p8, n0 = K.field_words(ctx)
-    folds = K.u32_array([v for row in fold_consts(ctx) for v in row])
     lib = K.get_lib()
     launches["planes_to_limbs_mul"] += 1
     K.check(lib.k2_planes_to_limbs_mul(
-        O.data_ptr(), mult.data_ptr(), out.data_ptr(), M, X, mls, mms, div,
-        mod, p8, n0, folds, K.stream_ptr(O)), "k2_planes_to_limbs_mul")
+        O.data_ptr(), mult.data_ptr(), out.data_ptr(), M, X, mode, mls, mms,
+        period, p8, n0, mu, K.stream_ptr(O)), "k2_planes_to_limbs_mul")
     return out
 
 
 # --------------------------------- K4 ---------------------------------------
 
+def twiddle_words(twiddles: torch.Tensor) -> torch.Tensor:
+    """(n/2, 8) int32: the 32-bit words of each twiddle of a (16, n/2) limb
+    table in one 32-byte row, K4's layout (ops/ntt.twiddle_table keeps them
+    beside each table it builds, as its `k4_words`)."""
+    t = twiddles.to(torch.int64)
+    w = (t[0::2] & MASK) | ((t[1::2] & MASK) << 16)            # (8, n/2)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(LIMB).t().contiguous()
+
+
 def ntt_radix2(a: torch.Tensor, twiddles: torch.Tensor, k: int,
                ctx=FR) -> torch.Tensor:
     """Radix-2 NTT along the last axis (size 2^k) of a CUDA (16, ..., n)
     limb tensor (int32, or int16 storage) with the (16, n/2) Montgomery
-    twiddle table: kernel K4, one launch per stage.  Returns (16, ..., n)
-    int32 limbs.  The CPU version is ops/ntt.ntt_last_axis_plain."""
+    twiddle table: kernel K4, one launch per pass of ops/ntt.k4_passes
+    (one up to k = 11, two up to k = 16, three up to k = 24).  Returns
+    (16, ..., n) int32 limbs.  The CPU version is
+    ops/ntt.ntt_last_axis_plain."""
     if not a.is_cuda:
         raise ValueError("ntt_radix2 launches K4 and takes CUDA tensors; "
                          "CPU tensors take ops/ntt.ntt_last_axis_plain")
+    if ctx.wide:
+        raise NotImplementedError("K4 covers p < 2^255 (Fr, Fq)")
     if not 0 <= k <= 30:
         raise ValueError(f"ntt_radix2: k = {k} outside 0..30")
     n = 1 << k
@@ -253,13 +337,18 @@ def ntt_radix2(a: torch.Tensor, twiddles: torch.Tensor, k: int,
     a = a.contiguous()
     if k == 0 or a.numel() == 0:
         return as_limbs32(a).clone()
-    twiddles = twiddles.contiguous()
+    from .ntt import k4_pass_array
+    cols = a.numel() // (NLIMB << k)
+    npass, passes = k4_pass_array(k, cols)
+    words = getattr(twiddles, "k4_words", None)
+    if words is None:                 # a table not from ops/ntt.twiddle_table
+        words = twiddle_words(twiddles)
     out = torch.empty(a.shape, dtype=LIMB, device=a.device)
     p8, n0 = K.field_words(ctx)
     lib = K.get_lib()
     launches["ntt_radix2"] += 1
     K.check(lib.k4_ntt_radix2(
         a.data_ptr(), 1 if a.dtype == torch.int16 else 0, out.data_ptr(),
-        twiddles.data_ptr(), a[0].numel() // n, k, p8, n0, K.stream_ptr(a)),
+        words.data_ptr(), cols, k, npass, passes, p8, n0, K.stream_ptr(a)),
         "k4_ntt_radix2")
     return out

@@ -19,6 +19,7 @@ nvcc is only called when a CUDA tensor first needs a kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -121,13 +122,14 @@ def _bind(lib):
     lib.k_error_string.restype = ctypes.c_char_p
     lib.k1_mont_mul.argtypes = [vp, vp, vp, cl, cl, cl, vp, ctypes.c_uint32, vp]
     lib.k1_mont_mul.restype = ci
-    lib.k2_planes_to_limbs_mul.argtypes = [vp, vp, vp, cl, cl, cl, cl, cl, cl,
-                                           vp, ctypes.c_uint32, vp, vp]
+    lib.k2_planes_to_limbs_mul.argtypes = [vp, vp, vp, ci, ci, ci, cl, ci, ci,
+                                           vp, ctypes.c_uint32,
+                                           ctypes.c_uint64, vp]
     lib.k2_planes_to_limbs_mul.restype = ci
     lib.k3_h_vm_run.argtypes = [vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, cl,
                                 ci, ci, vp, ctypes.c_uint32, vp]
     lib.k3_h_vm_run.restype = ci
-    lib.k4_ntt_radix2.argtypes = [vp, ci, vp, vp, cl, ci, vp,
+    lib.k4_ntt_radix2.argtypes = [vp, ci, vp, vp, cl, ci, ci, vp, vp,
                                   ctypes.c_uint32, vp]
     lib.k4_ntt_radix2.restype = ci
     return lib
@@ -159,9 +161,19 @@ def u32_array(words):
     return (ctypes.c_uint32 * len(words))(*words)
 
 
+def int_array(values):
+    """Host array of C ints (passed by pointer, read before the launch)."""
+    return (ctypes.c_int * len(values))(*values)
+
+
 def field_words(ctx):
-    """(p as 8 little-endian uint32 words, -p^{-1} mod 2^32) of a field."""
-    p = ctx.p
+    """(p as 8 little-endian uint32 words, -p^{-1} mod 2^32) of a field
+    (built once per modulus: the kernels only read the words)."""
+    return _field_words(ctx.p)
+
+
+@functools.lru_cache(maxsize=8)
+def _field_words(p: int):
     words = [(p >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
     n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
     return u32_array(words), n0

@@ -39,13 +39,16 @@ def _bitrev_perm(k: int) -> np.ndarray:
 def _twiddle_table(omega: int, k: int, p_name: str, device: str) -> torch.Tensor:
     ctx = D.ctx_for(p_name)
     vals = powers_host(omega % ctx.p, max((1 << k) // 2, 1), ctx.p)
-    return D.pack(vals, ctx, device=device)
+    table = D.pack(vals, ctx, device=device)
+    table.k4_words = CF.twiddle_words(table)
+    return table
 
 
 def twiddle_table(omega: int, k: int, p_name: str = "Fr",
                   device="cpu") -> torch.Tensor:
     """(16, max(n/2, 1)) Montgomery limbs of omega^i, i < n/2, on `device`
-    (built once per table and device)."""
+    (built once per table and device; callers must not write to it).  Its
+    `k4_words` attribute holds the same twiddles in K4's word layout."""
     return _twiddle_table(omega, k, p_name, D.device_key(device))
 
 
@@ -73,6 +76,89 @@ def ntt_last_axis_plain(a: torch.Tensor, twiddles: torch.Tensor, k: int,
         a = torch.stack([D.add(top, t, ctx), D.sub(top, t, ctx)], dim=-2) \
             .reshape(*lead, n)
     return a
+
+
+K4_TILE_LOG = 11     # csrc/ntt_radix2.cu's K4_MAX_LOG: 2^11 points a block
+K4_RUN_LOG = 3       # 2^3 groups a block: 32-byte runs of each limb row
+
+
+def k4_passes(k: int, cols: int = 1) -> tuple:
+    """K4's passes for a 2^k-point NTT over `cols` columns: a tuple of
+    (s0, s1, rlog), the pass running stages s0..s1-1 on 2^rlog groups of
+    2^(s1-s0) points a block.  One pass while a column fits a 2^11-point
+    tile (k <= 11); it takes as many columns a block as fit while the grid
+    keeps about 256 blocks or more.  Beyond that a pass's groups are
+    strided in memory and a block reads runs of 2^rlog words of each limb
+    row, so a pass runs at most 11 - 3 = 8 stages, leaving room for 2^3
+    groups (one 32-byte sector a run): two passes up to k = 16, three up to
+    k = 24.  Stages are shared out evenly, the larger share first.  Such a
+    pass takes 2^3 groups a block (more would only cut the blocks an SM
+    holds), fewer where the grid would drop below about 256 blocks."""
+    if k < 1 or cols < 1:
+        raise ValueError(f"k4_passes: k = {k}, cols = {cols}")
+    npass = 1 if k <= K4_TILE_LOG else -(-k // (K4_TILE_LOG - K4_RUN_LOG))
+    q, r = divmod(k, npass)
+    out, s0 = [], 0
+    for i in range(npass):
+        L = q + (i < r)
+        groups = cols << (k - L)
+        most = K4_TILE_LOG - L if npass == 1 else K4_RUN_LOG
+        rlog = max(0, min(most, (groups // 256).bit_length() - 1))
+        out.append((s0, s0 + L, rlog))
+        s0 += L
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def k4_pass_array(k: int, cols: int):
+    """(number of passes, k4_passes(k, cols) as the C int array K4's entry
+    point reads), built once per shape."""
+    from . import kernels as K
+    passes = k4_passes(k, cols)
+    return len(passes), K.int_array([v for ps in passes for v in ps])
+
+
+def ntt_passes_plain(a: torch.Tensor, twiddles: torch.Tensor, k: int,
+                     bounds, ctx=FR) -> torch.Tensor:
+    """Plain mirror of K4's pass structure (csrc/ntt_radix2.cu) in int64
+    lanes.  bounds = (0, ..., k) cuts the stages into passes; each pass
+    gathers its groups of points with the kernel's index formulas (the first
+    one through the bit-reversal), runs its stages on every group with the
+    kernel's twiddle index, and scatters the group back.  a: (16, ..., 2^k)
+    limbs (int32 or int16 storage); returns int32 limbs."""
+    n = 1 << k
+    if bounds[0] != 0 or bounds[-1] != k or \
+            any(s1 <= s0 for s0, s1 in zip(bounds[:-1], bounds[1:])):
+        raise ValueError(f"bounds {bounds} do not cut 0..{k}")
+    src = CF.as_limbs32(a).reshape(NLIMB, -1)
+    out = torch.empty_like(src)
+    cols, dev = src.shape[1] >> k, a.device
+    for q, (s0, s1) in enumerate(zip(bounds[:-1], bounds[1:])):
+        L, hb = s1 - s0, k - s1
+        gid = torch.arange(cols << (k - L), device=dev)[:, None]
+        i = torch.arange(1 << L, device=dev)[None, :]
+        lo = gid & ((1 << s0) - 1)
+        if q == 0:       # position bitrev_L(i') of the group holds in[i' 2^hb + u]
+            u, col = gid & ((1 << hb) - 1), gid >> hb
+            rev_l = torch.from_numpy(_bitrev_perm(L)).to(dev)
+            rev_h = torch.from_numpy(_bitrev_perm(hb)).to(dev)
+            v = torch.empty((NLIMB, gid.shape[0], 1 << L), dtype=src.dtype,
+                            device=dev)
+            v[:, :, rev_l] = src[:, col * n + (i << hb) + u]
+            store = col * n + (rev_h[u] << s1) + i
+        else:
+            hi = (gid >> s0) & ((1 << hb) - 1)
+            store = (gid >> (s0 + hb)) * n + (hi << s1) + (i << s0) + lo
+            v = out[:, store]
+        for l in range(L):
+            s, h = s0 + l, 1 << l
+            v = v.reshape(NLIMB, gid.shape[0], -1, 2, h)
+            twi = ((torch.arange(h, device=dev)[None, :] << s0) + lo) << (k - 1 - s)
+            t = D.mont_mul_plain(v[:, :, :, 1], twiddles[:, twi][:, :, None, :], ctx)
+            top = v[:, :, :, 0]
+            v = torch.stack([D.add(top, t, ctx), D.sub(top, t, ctx)], dim=3)
+        out[:, store] = v.reshape(NLIMB, gid.shape[0], 1 << L).to(out.dtype)
+    return out.reshape(a.shape)
 
 
 def ntt_last_axis(a: torch.Tensor, twiddles: torch.Tensor, k: int,

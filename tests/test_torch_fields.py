@@ -87,6 +87,17 @@ def test_cpu_tensors_take_the_plain_version():
                            "h_vm_run": 0, "ntt_radix2": 0}
 
 
+def test_native_loader_modulus_is_the_field_modulus():
+    """native_loader keeps its own copy of Fr's modulus (it reduces the
+    scalars it hands to the C layer): it must be fields.host's, in the port
+    and in the JAX package alike."""
+    from sha2cq_tpu import native_loader as ref_loader
+    from sha2cq_tpu_torch import native_loader
+    from sha2cq_tpu_torch.fields import host
+    assert native_loader._FR_MOD == host.FR_MOD == TD.FR.p == JD.FR.p
+    assert ref_loader._FR_MOD == native_loader._FR_MOD
+
+
 @pytest.mark.parametrize("mont", [True, False])
 def test_pack_unpack_match_jax(mont):
     """pack / np_pack / np_pack_buf / unpack / unpack_buf: the native
