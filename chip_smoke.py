@@ -5,7 +5,8 @@
 
 --parent DIR: DIR holds an older tree of the repo (its sha2cq_tpu_torch/);
 its kernel library is built too, and its K1, K2, K3 and K4 are timed against
-this tree's on the same inputs, in turns (old, new, new, old).
+this tree's on the same inputs, in turns (old, new, new, old).  (K5 and K6
+have no parent yet.)
 
 Phases, each printing its own line (any failure exits nonzero; no phase
 catches an error and goes on):
@@ -27,7 +28,10 @@ catches an error and goes on):
    extended rows) and at the k=18 coset shape (2^18 rows, the rot_scale=1
    program); the NTT plans built on the card (the m=512 digit matrix, the
    k=18 c2e twiddle tensor) against the host-built ones, bit for bit, with
-   both build times;
+   both build times; K5 (msm_bucket_sums) and K6 (msm_window_reduce) at the
+   device MSM's bucket shape (2^12 points, the path's window bits), each
+   against its plain version on the same inputs: affine equality of every
+   bucket / window sum on the card, and their limbs bit for bit;
 3. SHA-256 circuit32 / SCHEME8 at k=9, one block: under each h route
    (butterfly -- the auto route at k=9 --, monolithic digit-matmul,
    coset-streamed) the proof with h on the card is byte-identical to the
@@ -45,7 +49,19 @@ catches an error and goes on):
    program is the one K3 ran at 2^18 rows in phase 2) with profiler phases,
    verify_proof(...).check(), K1-K3 launched by the prove, and the coset
    and forced monolithic h forwards on the same inputs (bit-identical; ms
-   and peak memory).
+   and peak memory);
+6. the device MSM at full width: a 2^20-point SRS made natively
+   (poly/kzg/params._g1_powers_of_s, OpenMP), 2^20 random full-width
+   coefficients, ParamsKZG.commit on the card (msm() -> msm_device -> K5 ->
+   K6 -> host fold) cold and warm, equal to the native host Pippenger
+   (ops/msm.msm_host) on the same packed basis; K1, K5 and K6 launched by
+   the commit; the pack-and-digit seconds, the host seconds, the SRS build
+   seconds, the peak device bytes; commits of a 0/1 column and of a 16-bit
+   column (K5's skewed case) against the host MSM, both timed; K5 / K6
+   device ms (CUDA events) with bound and share at window bits 14, 15 and
+   16; and at the path's window bits K5 and K6 against their plain
+   versions on the commit's own points, digits and bucket layout (affine
+   and limb equality; the kernels line reports this shape).
 
 The last lines are the card's name and power limit, the kernels JSON object
 and the result object {"ok": true, "device": {...}}.
@@ -60,6 +76,7 @@ import importlib.util
 import json
 import math
 import os
+import random
 import subprocess
 import sys
 import time
@@ -69,6 +86,8 @@ DEVICE = "cuda:0"
 K_SMALL = 9
 K_SLICE, BLOCKS_SLICE = 13, 110
 K_BIG, BLOCKS_BIG = 18, 2048
+K_MSM = 20           # the device MSM's full width: HOST_THRESHOLD points
+MSM_SMALL = 1 << 12  # points of phase 2's K5 / K6 check
 C2E_COLUMNS = 212    # the slice's c2e batch: 123 advice + 1 instance + 8 z + 80 CQ
 SEED = 0x5256
 # Bounds (H100 SXM data sheet): HBM 3.35 TB/s;
@@ -77,6 +96,8 @@ SEED = 0x5256
 HBM_BYTES_PER_S = 3.35e12
 INT_MADS_PER_S = 67e12 / 4
 MONT_MADS = 264      # one 8x32-bit Montgomery product: 128 lo/hi pairs + 8 m
+MIXED_ADD_PRODUCTS = 11      # a mixed Jacobian addition, 7M + 4S (K5)
+JAC_ADD_PRODUCTS = 16        # a Jacobian addition, 12M + 4S (K6)
 ROUTES = {                       # create_proof flags forcing each h route
     "butterfly": {"h_mxu": False},
     "monolithic": {"h_mxu": True, "h_cosets": False},
@@ -91,6 +112,10 @@ KERNELS = {                      # name: (source, the TPU-side code it replaces)
                  "sha2cq_tpu/plonk/h_vm.py:340"),
     "ntt_radix2": ("sha2cq_tpu_torch/csrc/ntt_radix2.cu",
                    "sha2cq_tpu/ops/ntt.py:65"),
+    "msm_bucket_sums": ("sha2cq_tpu_torch/csrc/msm.cu",
+                        "sha2cq_tpu/ops/msm.py:169"),
+    "msm_window_reduce": ("sha2cq_tpu_torch/csrc/msm.cu",
+                          "sha2cq_tpu/ops/msm.py:257"),
 }
 
 
@@ -165,6 +190,30 @@ def bound_ms(nbytes: float, mads: float):
 
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item())
+
+
+def msm_work(live: int, nw: int, m: int):
+    """(bytes, multiply-adds) of K5 and of K6: K5 one mixed addition for
+    each of the `live` (point, window) pairs with a nonzero digit, each
+    reading its point's 64 bytes; K6 2 * nw * m Jacobian additions over
+    nw * m buckets of 96 bytes."""
+    return ((64 * live, live * MIXED_ADD_PRODUCTS * MONT_MADS),
+            (96 * nw * m, 2 * nw * m * JAC_ADD_PRODUCTS * MONT_MADS))
+
+
+def same_points(a, b) -> bool:
+    """Whether two Jacobian batches on the card hold the same affine points,
+    lane by lane: both the identity, or X1 Z2^2 = X2 Z1^2 and
+    Y1 Z2^3 = Y2 Z1^3 (products by K1)."""
+    from sha2cq_tpu_torch.fields import device as D
+    a = [t.reshape(16, -1) for t in a]
+    b = [t.reshape(16, -1) for t in b]
+    z1s, z2s = D.mont_mul(a[2], a[2], D.FQ), D.mont_mul(b[2], b[2], D.FQ)
+    ex = D.eq(D.mont_mul(a[0], z2s, D.FQ), D.mont_mul(b[0], z1s, D.FQ))
+    ey = D.eq(D.mont_mul(a[1], D.mont_mul(z2s, b[2], D.FQ), D.FQ),
+              D.mont_mul(b[1], D.mont_mul(z1s, a[2], D.FQ), D.FQ))
+    ia, ib = D.is_zero(a[2]), D.is_zero(b[2])
+    return bool(((ia & ib) | (~ia & ~ib & ex & ey)).all())
 
 
 def load_parent_kernels(parent: str):
@@ -293,9 +342,11 @@ def main() -> None:
     p8, n0 = K.field_words(D.FR)
     kernels = {}
 
-    def record(name, out, ref, ms, plain_ms, nbytes, mads, **shape):
+    def record(name, out, ref, ms, plain_ms, nbytes, mads, report=False,
+               **shape):
         """One kernel checked against its plain version at one shape; the
-        first shape recorded is the one the kernels line reports."""
+        kernels line reports the shape marked `report`, else the first
+        shape recorded."""
         err = max_abs_err(out, ref)
         source, replaces = KERNELS[name]
         bound, by = bound_ms(nbytes, mads)
@@ -304,6 +355,8 @@ def main() -> None:
             launches=0, max_abs_err=0, ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=None))
         k = kernels[name]
+        if report:
+            k.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
         k["max_abs_err"] = max(k["max_abs_err"], err)
         say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by,
@@ -546,6 +599,58 @@ def main() -> None:
         fail("a card-built NTT plan differs from the host-built one")
     del host_mat, host_rowsum, mat, rowsum, host_tw, card_tw
 
+    # ---- phase 2e: K5 and K6 at the device MSM's bucket shape ------------
+    # MSM_SMALL random points (a repeated point and a P, -P pair under equal
+    # scalars among them) in the path's buckets: 2^c a window, c the window
+    # bits the full-width commit of phase 6 takes (phase 6 checks both
+    # kernels again on the commit's own inputs; the kernels line reports
+    # that shape)
+    from sha2cq_tpu_torch import native_loader as NL
+    from sha2cq_tpu_torch.curves import device as PD
+    from sha2cq_tpu_torch.curves import host as CH
+    from sha2cq_tpu_torch.ops import msm as M
+    rng = random.Random(SEED)
+    c_msm = M.pick_window_bits(1 << K_MSM)
+    pts = CH.jac_batch_to_affine(NL.native_batch_scalar_mul(
+        [CH.jac_from_affine(CH.G1_GEN)] * MSM_SMALL,
+        [rng.randrange(1, p) for _ in range(MSM_SMALL)]))
+    scal_msm = [rng.randrange(p) for _ in range(MSM_SMALL)]
+    pts[5], scal_msm[5] = pts[4], scal_msm[4]
+    pts[9], scal_msm[9] = CH.g1_neg(pts[8]), scal_msm[8]
+    words = M.affine_words(PD.pack_affine(pts, device=dev))
+    digits = M._scalars_to_digits(NL.fr_buf(scal_msm), c_msm, dev)
+    order, starts = M.bucket_layout(digits, c_msm)
+    nw, m = digits.shape[0], 1 << c_msm
+
+    def k5():
+        return M.msm_bucket_sums(words, order, starts)
+
+    buckets = k5()
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(lambda: M.bucket_sums_plain(words, order, starts))
+    if not same_points(buckets, ref):
+        fail("K5's bucket sums are not its plain version's points")
+    work5, work6 = msm_work(int((digits != 0).sum()), nw, m)
+    record("msm_bucket_sums", torch.stack(buckets), torch.stack(ref),
+           cuda_time_ms(k5, 10), plain_ms, *work5, shape=[nw, m],
+           points=MSM_SMALL, window_bits=c_msm, affine_equal=True,
+           device_ms=graph_time_ms(k5, 10))
+    sums = M.msm_window_reduce(buckets)
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(lambda: M.window_reduce_plain(buckets))
+    if not same_points(sums, ref):
+        fail("K6's window sums are not its plain version's points")
+    record("msm_window_reduce", torch.stack(sums), torch.stack(ref),
+           cuda_time_ms(lambda: M.msm_window_reduce(buckets), 10), plain_ms,
+           *work6, shape=[nw, m], window_bits=c_msm, affine_equal=True,
+           device_ms=graph_time_ms(lambda: M.msm_window_reduce(buckets), 10))
+    want = CH.jac_to_affine(NL.native_msm(
+        scal_msm, [CH.jac_from_affine(q) for q in pts]))
+    if M._fold_windows(sums, c_msm) != want:
+        fail("K5 + K6 at 2^12 points disagree with the native host MSM")
+    del pts, words, digits, order, starts, buckets, sums, ref
+    torch.cuda.empty_cache()
+
     # ---- phase 3: k=9 proofs on the card == host-path proof --------------
     t0 = time.perf_counter()
     proof_host = C.prove(small, 9, h_device=False)
@@ -697,6 +802,130 @@ def main() -> None:
             fail(f"kernel {name} was not launched by the k=18 prove")
         kernels[name]["launches"] = big_launches[name]
     compare_routes(C, big.pk, dev, ["coset", "monolithic"], "k18")
+    del big, big_fn, proof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the device MSM at full width, 2^20 points --------------
+    from sha2cq_tpu_torch.poly.kzg import params as KP
+    n_msm = 1 << K_MSM
+    rng = random.Random(SEED + K_MSM)
+    s_msm = rng.randrange(p)
+    t0 = time.perf_counter()
+    params = KP.ParamsKZG(k=K_MSM, n=n_msm, g=KP._g1_powers_of_s(s_msm, n_msm),
+                          g_lagrange=[], g2=CH.G2_GEN,
+                          s_g2=CH.g2_mul(CH.G2_GEN, s_msm))
+    srs_s = time.perf_counter() - t0
+    coeffs = [rng.randrange(p) for _ in range(n_msm)]
+    t0 = time.perf_counter()
+    packed = M.packed_basis(params, "_g_packed", params.g)
+    basis_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    commits = {}
+    for run in ("cold", "warm"):
+        CF.reset_launches()
+        t0 = time.perf_counter()
+        point = params.commit(coeffs)
+        torch.cuda.synchronize()
+        commits[run] = (point, time.perf_counter() - t0, dict(CF.launches))
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    host = M.msm_host(coeffs, params.g, packed=packed)
+    host_s = time.perf_counter() - t0
+    say("msm_commit", points=n_msm, window_bits=M.pick_window_bits(n_msm),
+        equal_to_host=all(v[0] == host for v in commits.values()),
+        cold_s=commits["cold"][1], warm_s=commits["warm"][1],
+        host_native_s=host_s, srs_build_s=srs_s, basis_pack_s=basis_s,
+        peak_device_bytes=peak, resident_bytes_before=resident,
+        launches=commits["warm"][2])
+    if any(v[0] != host for v in commits.values()):
+        fail("the card's commitment of 2^20 points differs from the native "
+             "host MSM's")
+    for name in ("mont_mul", "msm_bucket_sums", "msm_window_reduce"):
+        if any(v[2][name] <= 0 for v in commits.values()):
+            fail(f"kernel {name} was not launched by the 2^20-point commit")
+    for name in ("msm_bucket_sums", "msm_window_reduce"):
+        kernels[name]["launches"] = commits["warm"][2][name]
+    # columns of small values, as a circuit's witness mostly holds: bits put
+    # about half the points in bucket 1 of window 0, 16-bit words (c = 15)
+    # in bucket 1 of window 1, and one K5 thread walks each such bucket
+    c_full = M.pick_window_bits(n_msm)
+    for kind, top in (("bits", 2), ("words16", 1 << 16)):
+        col = [rng.randrange(top) for _ in range(n_msm)]
+        starts = M.bucket_layout(M._scalars_to_digits(
+            NL.fr_buf(col), c_full, dev), c_full)[1]
+        seg = (starts[:, 2:] - starts[:, 1:-1]).max().item()
+        t0 = time.perf_counter()
+        point = params.commit(col)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = M.msm_host(col, params.g, packed=packed)
+        say("msm_commit_skewed", scalars=kind, values_below=top,
+            equal_to_host=point == want, device_s=dev_s,
+            host_native_s=time.perf_counter() - t0, longest_bucket=seg)
+        if point != want:
+            fail(f"the card's commitment of a {kind} column differs from "
+                 "the native host MSM's")
+        del col, starts
+    # one commit's stages, and K5 / K6 by window bits at full width
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = NL.fr_buf([x % p for x in coeffs])
+    words = M.affine_words(PD.pack_affine(device=dev, packed=packed, n=n_msm))
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    for c in (14, 15, 16):
+        t0 = time.perf_counter()
+        digits = M._scalars_to_digits(buf, c, dev)
+        order, starts = M.bucket_layout(digits, c)
+        torch.cuda.synchronize()
+        digit_s = time.perf_counter() - t0
+        nw, m = digits.shape[0], 1 << c
+        (b5, by5), (b6, by6) = (bound_ms(*w) for w in msm_work(
+            int((digits != 0).sum()), nw, m))
+        def k5():
+            return M.msm_bucket_sums(words, order, starts)
+
+        buckets, first_ms = timed_once(k5)
+        if c == c_full:          # the commit's own inputs: each kernel vs plain
+            ref, plain_ms = timed_once(
+                lambda: M.bucket_sums_plain(words, order, starts))
+            if not same_points(buckets, ref):
+                fail("K5's bucket sums at 2^20 points are not its plain "
+                     "version's points")
+            record("msm_bucket_sums", torch.stack(buckets), torch.stack(ref),
+                   cuda_time_ms(k5, 3), plain_ms, *msm_work(
+                       int((digits != 0).sum()), nw, m)[0], report=True,
+                   shape=[nw, m], points=n_msm, window_bits=c,
+                   affine_equal=True)
+            sums = M.msm_window_reduce(buckets)
+            torch.cuda.synchronize()
+            ref, plain_ms = timed_once(lambda: M.window_reduce_plain(buckets))
+            if not same_points(sums, ref):
+                fail("K6's window sums at 2^20 points are not its plain "
+                     "version's points")
+            record("msm_window_reduce", torch.stack(sums), torch.stack(ref),
+                   cuda_time_ms(lambda: M.msm_window_reduce(buckets), 3),
+                   plain_ms, *msm_work(0, nw, m)[1], report=True,
+                   shape=[nw, m], window_bits=c, affine_equal=True)
+            del ref, sums
+        # c = 14 puts all points in the top window's 4 buckets: seconds a launch
+        k5 = [first_ms] if c == 14 else [cuda_time_ms(k5, 3) for _ in range(3)]
+        k6 = [cuda_time_ms(lambda: M.msm_window_reduce(buckets), 3)
+              for _ in range(3)]
+        seg = (starts[:, 2:] - starts[:, 1:-1]).max().item()
+        say("msm_kernel", window_bits=c, windows=nw,
+            chosen=c == M.pick_window_bits(n_msm), k5_ms=k5, k5_bound_ms=b5,
+            k5_bound_by=by5, k5_share=b5 / min(k5), k6_ms=k6,
+            k6_bound_ms=b6, k6_bound_by=by6, k6_share=b6 / min(k6),
+            longest_bucket=seg, digits_and_order_s=digit_s,
+            scalars_and_points_s=pack_s)
+        del digits, order, starts, buckets
+        torch.cuda.empty_cache()
+    del params, packed, words, buf, coeffs
 
     say("done", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)

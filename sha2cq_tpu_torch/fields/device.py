@@ -303,3 +303,89 @@ def mont_mul(a, b, ctx: FieldCtx = FR):
     from ..ops import cuda_field
     return cuda_field.mont_mul(a, b, ctx)
 
+
+
+# ------------------------ constants, masks, chains --------------------------
+# The rest of the reference's fields/device.py, built from add/sub and
+# mont_mul (kernel K1 on a CUDA tensor).  Batch shapes follow the reference;
+# `device` places new tensors.
+
+def _const_limbs(limbs: np.ndarray, batch_shape, device) -> torch.Tensor:
+    t = torch.as_tensor(limbs.astype(np.int32), device=device)
+    t = t.reshape((NLIMB,) + (1,) * len(batch_shape))
+    return t.expand(NLIMB, *batch_shape).contiguous()
+
+
+def zeros(batch_shape, ctx: FieldCtx = FR, device=None) -> torch.Tensor:
+    return torch.zeros((NLIMB, *batch_shape), dtype=LIMB, device=device)
+
+
+def ones(batch_shape, ctx: FieldCtx = FR, device=None) -> torch.Tensor:
+    """Montgomery one (= R mod p) broadcast over the batch."""
+    return _const_limbs(ctx.r_limbs, batch_shape, device)
+
+
+def const_array(ctx: FieldCtx, value: int, batch_shape=(),
+                device=None) -> torch.Tensor:
+    """Montgomery-form constant broadcast to a batch shape."""
+    v = (value % ctx.p) * ctx.r % ctx.p
+    return _const_limbs(_int_to_limbs(v), batch_shape, device)
+
+
+def is_zero(a) -> torch.Tensor:
+    """Boolean mask over the batch dims: a == 0 (all limbs zero)."""
+    return (a == 0).all(dim=0)
+
+
+def eq(a, b) -> torch.Tensor:
+    return (widen(a) == widen(b)).all(dim=0)
+
+
+def select(mask, a, b) -> torch.Tensor:
+    """mask ? a : b  (mask over batch dims)."""
+    return torch.where(mask.unsqueeze(0), a, b)
+
+
+def mont_sq(a, ctx: FieldCtx = FR):
+    return mont_mul(a, a, ctx)
+
+
+def _scalar_limbs(limbs: np.ndarray, a: torch.Tensor) -> torch.Tensor:
+    """One element as a (16, 1, ...) tensor broadcasting against a."""
+    return torch.as_tensor(limbs.astype(np.int32), device=a.device).reshape(
+        (NLIMB,) + (1,) * (a.dim() - 1))
+
+
+def to_mont(a, ctx: FieldCtx = FR):
+    """standard form -> Montgomery form (multiply by R^2 then REDC)."""
+    return mont_mul(a, _scalar_limbs(ctx.r2_limbs, a), ctx)
+
+
+def from_mont(a, ctx: FieldCtx = FR):
+    """Montgomery form -> standard form (REDC against 1)."""
+    return mont_mul(a, _scalar_limbs(_int_to_limbs(1), a), ctx)
+
+
+def pow_const(a, e: int, ctx: FieldCtx = FR):
+    """a^e for a host-known exponent: square-and-multiply from the top bit,
+    one squaring and, where the bit is set, one product per step."""
+    if e == 0:
+        return ones(a.shape[1:], ctx, a.device)
+    acc = a
+    for i in range(e.bit_length() - 2, -1, -1):
+        acc = mont_sq(acc, ctx)
+        if (e >> i) & 1:
+            acc = mont_mul(acc, a, ctx)
+    return acc
+
+
+def inv(a, ctx: FieldCtx = FR):
+    """Elementwise inverse via Fermat (a^{p-2}); inverse of 0 is 0."""
+    r = pow_const(a, ctx.p - 2, ctx)
+    return select(is_zero(a), torch.zeros_like(r), r)
+
+
+def mul_scalar(a, scalar_limbs, ctx: FieldCtx = FR):
+    """Multiply a whole array by one Montgomery-form scalar (16,)."""
+    return mont_mul(a, scalar_limbs.reshape((NLIMB,) + (1,) * (a.dim() - 1)),
+                    ctx)

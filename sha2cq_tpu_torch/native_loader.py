@@ -127,6 +127,24 @@ def _unpack_jac(buf, i: int = 0):
             _from_u64s(buf, 12 * i + 8))
 
 
+# g1_msm and g1_msm_indexed return nothing and leave `out` unwritten when
+# their core fails to allocate; every point they do write has canonical
+# coordinates (< q < 2^254), so an all-ones word marks an unwritten slot.
+_UNWRITTEN = (1 << 64) - 1
+
+
+def _msm_out() -> "ctypes.Array":
+    return (ctypes.c_uint64 * 12)(*([_UNWRITTEN] * 12))
+
+
+def _msm_result(out):
+    """The Jacobian point in `out`; MemoryError if the C side left it
+    unwritten (an allocation failed), rather than a silent identity."""
+    if all(w == _UNWRITTEN for w in out):
+        raise MemoryError("native G1 MSM could not allocate its buffers")
+    return _unpack_jac(out)
+
+
 def native_jac_mul(point_jac, scalar: int):
     """scalar * point (Jacobian in/out); returns None if native unavailable."""
     lib = get_lib()
@@ -145,9 +163,9 @@ def native_msm(scalars: List[int], points_jac) -> Optional[tuple]:
         return None
     n = len(scalars)
     pin = _pack_jac(points_jac)
-    out = (ctypes.c_uint64 * 12)()
+    out = _msm_out()
     lib.g1_msm(pin, _pack_scalars(scalars), ctypes.c_long(n), out)
-    return _unpack_jac(out)
+    return _msm_result(out)
 
 
 def pack_points_affine(points) -> Optional["ctypes.Array"]:
@@ -166,9 +184,9 @@ def native_msm_packed(scalars: List[int], packed, n: int) -> Optional[tuple]:
     lib = get_lib()
     if lib is None:
         return None
-    out = (ctypes.c_uint64 * 12)()
+    out = _msm_out()
     lib.g1_msm(packed, _pack_scalars(scalars), ctypes.c_long(n), out)
-    return _unpack_jac(out)
+    return _msm_result(out)
 
 
 def native_msm_indexed(scalars: List[int], indices: List[int],
@@ -180,10 +198,10 @@ def native_msm_indexed(scalars: List[int], indices: List[int],
         return None
     n = len(scalars)
     idx = (ctypes.c_long * n)(*indices)
-    out = (ctypes.c_uint64 * 12)()
+    out = _msm_out()
     lib.g1_msm_indexed(packed, idx, _pack_scalars(scalars),
                        ctypes.c_long(n), out)
-    return _unpack_jac(out)
+    return _msm_result(out)
 
 
 def native_msm_multi(jobs) -> Optional[List[tuple]]:

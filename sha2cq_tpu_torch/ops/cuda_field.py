@@ -18,7 +18,8 @@ Three wrappers, each with its plain PyTorch version and a launch counter:
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  There is no shape gate: the kernels index every operand directly
 and mask the ragged edge.  (The h VM's kernel K3 has its wrapper in
-plonk/h_vm.py; its counter lives here with the others.)
+plonk/h_vm.py, the MSM's kernels K5 and K6 theirs in ops/msm.py; their
+counters live here with the others.)
 """
 from __future__ import annotations
 
@@ -31,9 +32,12 @@ from . import kernels as K
 NDIG = 32
 K2_TILE, K2_MINOR, K2_MAJOR, K2_SCALAR = range(4)   # csrc/planes_to_limbs.cu's K2Mode
 
-# Launch counts, one per kernel: incremented exactly where a kernel launches.
+# Launch counts, one per kernel: incremented exactly where a wrapper calls
+# its kernel's C entry, once a call.  Two entries launch more than one
+# CUDA kernel a call: K4's (one k4_pass a pass, ops/ntt.k4_passes) and
+# K6's (k6_partials_kernel, then k6_combine_kernel).
 launches = {"mont_mul": 0, "planes_to_limbs_mul": 0, "h_vm_run": 0,
-            "ntt_radix2": 0}
+            "ntt_radix2": 0, "msm_bucket_sums": 0, "msm_window_reduce": 0}
 
 
 def reset_launches() -> None:

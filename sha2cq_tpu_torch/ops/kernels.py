@@ -132,6 +132,13 @@ def _bind(lib):
     lib.k4_ntt_radix2.argtypes = [vp, ci, vp, vp, cl, ci, ci, vp, vp,
                                   ctypes.c_uint32, vp]
     lib.k4_ntt_radix2.restype = ci
+    lib.k5_msm_bucket_sums.argtypes = [vp, vp, vp, vp, vp, vp, cl, cl, cl,
+                                       vp, ctypes.c_uint32, vp, vp]
+    lib.k5_msm_bucket_sums.restype = ci
+    lib.k6_msm_window_reduce.argtypes = [vp, vp, vp, vp, vp, vp, vp, cl, cl,
+                                         cl, cl, cl, cl, vp, ctypes.c_uint32,
+                                         vp, vp]
+    lib.k6_msm_window_reduce.restype = ci
     return lib
 
 
@@ -170,6 +177,16 @@ def field_words(ctx):
     """(p as 8 little-endian uint32 words, -p^{-1} mod 2^32) of a field
     (built once per modulus: the kernels only read the words)."""
     return _field_words(ctx.p)
+
+
+def one_words(ctx):
+    """Montgomery one (R mod p) of a field as 8 little-endian uint32 words."""
+    return _one_words(ctx.r)
+
+
+@functools.lru_cache(maxsize=8)
+def _one_words(r: int):
+    return u32_array([(r >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
 
 
 @functools.lru_cache(maxsize=8)

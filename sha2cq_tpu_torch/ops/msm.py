@@ -1,21 +1,47 @@
-"""Multi-scalar multiplication dispatch of the port (counterpart of
-sha2cq_tpu/ops/msm.py, host side only).
+"""Multi-scalar multiplication of the port (counterpart of
+sha2cq_tpu/ops/msm.py).
 
-Commitments run on the native host Pippenger (native/fieldops.c) below
-HOST_THRESHOLD, exactly as in the reference.  The device MSM is not ported
-yet, so msm() above the threshold raises (ROADMAP, "device MSM").
+msm() sends an MSM of fewer than HOST_THRESHOLD points to the native host
+Pippenger (native/fieldops.c) and a larger one to the device Pippenger
+msm_device, exactly as the reference does.
+
+The device Pippenger, per window of c scalar bits:
+  digits                     (_scalars_to_digits: tensor ops on the device)
+  point indices sorted by digit, bucket offsets   (bucket_layout: torch.sort)
+  bucket sums B_b            (msm_bucket_sums: kernel K5 on a card, over
+                              the points in affine_words' layout)
+  sum_{b >= 1} b * B_b       (msm_window_reduce: kernel K6 on a card)
+then the 2^c-weighted fold of the nw window sums on the host, as in the
+reference.  A CPU tensor takes the plain versions (bucket_sums_plain,
+window_reduce_plain, built on curves/device.py), which add in the kernels'
+order, so a kernel's output equals its plain version's limb for limb.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
+from ..curves import device as PD
 from ..curves import host as CH
+from ..fields import device as D
 from ..fields import host as H
+from ..fields.device import FQ, LIMB, NLIMB
 
 # Same threshold as the reference: below it the host Pippenger is used.
 HOST_THRESHOLD = 1 << 20
+
+# Window bits of the device MSM from HOST_THRESHOLD points, chosen on the
+# card at 2^20 points (PERF.md, K5/K6 by window size; larger n unmeasured):
+# 15 took less K5 + K6 time than 16 (K6 reduces half the buckets).  The
+# reference's rule gives 14 there, whose top window holds 2 bits of a scalar
+# below 2^254: all points fall into 4 buckets, and K5, one thread per
+# bucket, walks them in series.
+DEVICE_WINDOW_BITS = 15
+
+K6_RUN = 16         # buckets a K6 thread sums (csrc/msm.cu)
+K6_THREADS = 128    # most threads of a K6 block: csrc/msm.cu's K6_MAX
 
 
 def msm_host(scalars: Sequence[int], points, packed=None) -> CH.G1Affine:
@@ -66,13 +92,274 @@ def msm_host(scalars: Sequence[int], points, packed=None) -> CH.G1Affine:
 
 
 def msm(scalars: Sequence[int], points, packed=None) -> CH.G1Affine:
-    """Dispatch: MSMs below HOST_THRESHOLD run on the native host layer; the
-    device MSM is not ported yet (ROADMAP, "device MSM")."""
+    """Dispatch: tiny MSMs on the host, big ones on the card."""
     if len(scalars) < HOST_THRESHOLD:
         return msm_host(scalars, points, packed=packed)
-    raise NotImplementedError(
-        f"MSM of {len(scalars)} points needs the device MSM, which the "
-        "PyTorch port does not have yet (ROADMAP: device MSM)")
+    return msm_device(scalars, points, packed=packed)
+
+
+# ------------------------------ device MSM ----------------------------------
+
+def pick_window_bits_v2(n: int) -> int:
+    """The reference's window size: balance the O(n) work per window
+    against the O((2c+3) * 2^c) bucket-side work."""
+    c = 8
+    while c < 16 and (1 << (c + 1)) * (2 * (c + 1) + 3) <= n:
+        c += 1
+    return c
+
+
+def pick_window_bits(n: int) -> int:
+    """The device MSM's window size: the reference's rule below
+    HOST_THRESHOLD points, DEVICE_WINDOW_BITS from there."""
+    if n >= HOST_THRESHOLD:
+        return DEVICE_WINDOW_BITS
+    return pick_window_bits_v2(n)
+
+
+def _scalars_to_digits(buf, c: int, device=None) -> torch.Tensor:
+    """(n, 4) canonical u64 scalar buffer (native_loader.fr_buf) ->
+    (ceil(256/c), n) int32 c-bit windows, the reference's digits, computed
+    with tensor ops on `device`."""
+    words = torch.from_numpy(np.ascontiguousarray(buf).view(np.int64))
+    w32 = words.to(device).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    w32 = torch.cat([w32, torch.zeros_like(w32[:, :1])], dim=1)   # (n, 9)
+    mask = (1 << c) - 1
+    rows = []
+    for w in range((256 + c - 1) // c):
+        j, sh = divmod(c * w, 32)
+        d = w32[:, j] >> sh
+        if sh + c > 32:
+            d = d | (w32[:, j + 1] << (32 - sh))
+        rows.append(d & mask)
+    return torch.stack(rows).to(torch.int32)
+
+
+def bucket_layout(digits: torch.Tensor, c: int):
+    """(order, starts) of (nw, n) digits: each window's point indices sorted
+    by digit (stable, so a bucket adds its points in index order), and
+    starts[w, b] the offset of bucket b's segment (starts[w, 2^c] = n);
+    both int32."""
+    nw = digits.shape[0]
+    sorted_d, order = torch.sort(digits, dim=1, stable=True)
+    edges = torch.arange((1 << c) + 1, dtype=sorted_d.dtype,
+                         device=digits.device).expand(nw, -1).contiguous()
+    starts = torch.searchsorted(sorted_d.contiguous(), edges)
+    return order.to(torch.int32).contiguous(), starts.to(torch.int32)
+
+
+def affine_words(points: PD.PointArray) -> torch.Tensor:
+    """K5's point layout: (n, 16) int32, the eight 32-bit words of x then
+    of y (Montgomery), all zero for the identity ((0, 0) is on no curve
+    y^2 = x^3 + 3).  Every Z must be 0 or Montgomery one (K5 adds affine
+    points)."""
+    X, Y, Z = points
+    ident = D.is_zero(Z)
+    if not bool((ident | D.eq(Z, D.ones((1,), FQ, Z.device))).all()):
+        raise ValueError("K5 adds affine points: each Z must be 0 or one")
+    xy = torch.cat([X, Y]).to(torch.int64)
+    w = xy[0::2] | (xy[1::2] << 16)                    # (16, n)
+    w = torch.where(ident, 0, w)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(LIMB).t().contiguous()
+
+
+def _words_to_points(words: torch.Tensor) -> PD.PointArray:
+    """affine_words' inverse: a Jacobian batch with Z = one, or Z = 0 (and
+    x = y = 0) for the identity."""
+    w = words.t().to(torch.int64) & 0xFFFFFFFF                # (16, n)
+    limbs = torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(32, -1).to(LIMB)
+    one = D.ones((words.shape[0],), FQ, words.device)
+    Z = D.select(D.is_zero(limbs), torch.zeros_like(one), one)
+    return (limbs[:NLIMB], limbs[NLIMB:], Z)
+
+
+def bucket_sums_plain(words: torch.Tensor, order: torch.Tensor,
+                      starts: torch.Tensor) -> PD.PointArray:
+    """Plain version of K5: B[w, b] = the sum of the points in bucket b of
+    window w (identity for b = 0), as a Jacobian batch over (nw, 2^c).
+    Step k adds the k-th point of every segment longer than k, so each
+    bucket adds its points in the kernel's order; identity points are
+    skipped, as the kernel skips them."""
+    points = _words_to_points(words)
+    nw, n = order.shape
+    m = starts.shape[1] - 1
+    starts = starts.long()
+    counts = (starts[:, 1:] - starts[:, :-1])
+    counts[:, 0] = 0                                   # digit 0: no bucket
+    counts = counts.reshape(-1)
+    first = (starts[:, :-1] + n * torch.arange(
+        nw, device=order.device)[:, None]).reshape(-1)
+    flat = order.reshape(-1).long()
+    live = ~PD.is_identity(points)
+    acc = PD.identity_like((nw * m,), order.device)
+    for k in range(int(counts.max()) if counts.numel() else 0):
+        lanes = torch.nonzero(counts > k).squeeze(1)
+        idx = flat[first[lanes] + k]
+        cur = tuple(a[:, lanes] for a in acc)
+        q = tuple(a[:, idx] for a in points)
+        new = PD.select_point(live[idx], PD.point_add(cur, q), cur)
+        acc = tuple(a.index_copy(1, lanes, b) for a, b in zip(acc, new))
+    return tuple(a.reshape(NLIMB, nw, m) for a in acc)
+
+
+def msm_bucket_sums(words: torch.Tensor, order: torch.Tensor,
+                    starts: torch.Tensor) -> PD.PointArray:
+    """Bucket sums of every window (see bucket_sums_plain): kernel K5 on a
+    card, the plain version on the CPU.  words: (n, 16) affine points
+    (affine_words); order (nw, n) and starts (nw, 2^c + 1) int32 from
+    bucket_layout."""
+    if not order.is_cuda:
+        return bucket_sums_plain(words, order, starts)
+    from . import cuda_field as CF
+    from . import kernels as K
+    nw, n = order.shape
+    m = starts.shape[1] - 1
+    if order.dtype != torch.int32 or starts.dtype != torch.int32 or \
+            starts.shape[0] != nw or m < 1 or n >= 1 << 31:
+        raise ValueError(f"K5: order (nw, n) and starts (nw, m + 1) int32, "
+                         f"got {tuple(order.shape)} {order.dtype}, "
+                         f"{tuple(starts.shape)} {starts.dtype}")
+    if words.shape != (n, 16) or words.dtype != LIMB or \
+            words.device != order.device:
+        raise ValueError(f"K5: words must be ({n}, 16) int32 on "
+                         f"{order.device}, got {tuple(words.shape)} "
+                         f"{words.dtype} on {words.device}")
+    words, order, starts = (t.contiguous() for t in (words, order, starts))
+    out = torch.empty((3, NLIMB, nw, m), dtype=LIMB, device=order.device)
+    p8, n0 = K.field_words(FQ)
+    lib = K.get_lib()
+    CF.launches["msm_bucket_sums"] += 1
+    K.check(lib.k5_msm_bucket_sums(
+        words.data_ptr(), order.data_ptr(), starts.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), nw, n, m,
+        p8, n0, K.one_words(FQ), K.stream_ptr(order)), "k5_msm_bucket_sums")
+    return (out[0], out[1], out[2])
+
+
+def k6_shape(m: int):
+    """(L, T, P) of K6 for 2^c = m buckets a window: L buckets a thread, T
+    threads a block, P blocks a window (all powers of two)."""
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"K6: the bucket count {m} is not a power of two")
+    L = min(K6_RUN, m)
+    T = min(K6_THREADS, m // L)
+    P = m // (L * T)
+    if P > K6_THREADS:
+        raise ValueError(f"K6 takes at most {K6_RUN * K6_THREADS ** 2} "
+                         f"buckets a window, got {m}")
+    return L, T, P
+
+
+def _dbl_n(p: PD.PointArray, k: int) -> PD.PointArray:
+    for _ in range(k):
+        p = PD.point_double(p)
+    return p
+
+
+def _halves(p: PD.PointArray):
+    """Adjacent pairs along the last axis: (even entries, odd entries)."""
+    return tuple(a[..., 0::2] for a in p), tuple(a[..., 1::2] for a in p)
+
+
+def window_reduce_plain(buckets: PD.PointArray) -> PD.PointArray:
+    """Plain version of K6: per window sum_{b >= 1} b * B_b of a Jacobian
+    batch over (nw, m), as a batch over (nw,).  It takes K6's steps in
+    K6's order (k6_shape): bucket b = p*T*L + j*T + t goes to thread t of
+    block p; the thread's running sums give S = sum_j B and, after log2 T
+    doublings, W = T * sum_j j*B; a tree over the threads (W = W_l + W_r +
+    2^l S_r) and one over the blocks (V = V_l + V_r + 2^l S_r) give the
+    window's W + T*L*V."""
+    nw, m = buckets[0].shape[1:]
+    L, T, P = k6_shape(m)
+    dev = buckets[0].device
+    B = [a.reshape(NLIMB, nw, P, L, T) for a in buckets]
+    lanes = (nw, P, T)
+
+    def column(j):
+        return tuple(a[:, :, :, j, :] for a in B)
+
+    run = acc = PD.identity_like(lanes, dev)
+    for j in range(L - 1, 0, -1):
+        run = PD.point_add(run, column(j))
+        acc = PD.point_add(acc, run)
+    S = PD.point_add(run, column(0))
+    W = _dbl_n(acc, T.bit_length() - 1)
+    for lev in range(T.bit_length() - 1):             # threads of a block
+        (SL, SR), (WL, WR) = _halves(S), _halves(W)
+        S = PD.point_add(SL, SR)
+        W = PD.point_add(PD.point_add(WL, WR), _dbl_n(SR, lev))
+    S, W = (tuple(a[..., 0] for a in x) for x in (S, W))      # (nw, P)
+    V = PD.identity_like((nw, P), dev)
+    for lev in range(P.bit_length() - 1):             # blocks of a window
+        (SL, SR), (VL, VR), (WL, WR) = _halves(S), _halves(V), _halves(W)
+        S = PD.point_add(SL, SR)
+        V = PD.point_add(PD.point_add(VL, VR), _dbl_n(SR, lev))
+        W = PD.point_add(WL, WR)
+    V, W = (tuple(a[..., 0] for a in x) for x in (V, W))
+    return PD.point_add(W, _dbl_n(V, (T * L).bit_length() - 1))
+
+
+def msm_window_reduce(buckets: PD.PointArray) -> PD.PointArray:
+    """Per window sum_{b >= 1} b * B_b of bucket sums over (nw, 2^c):
+    kernel K6 on a card, the plain version on the CPU."""
+    X = buckets[0]
+    if not X.is_cuda:
+        return window_reduce_plain(buckets)
+    from . import cuda_field as CF
+    from . import kernels as K
+    if X.dim() != 3 or X.shape[0] != NLIMB or any(
+            a.shape != X.shape or a.device != X.device or a.dtype != LIMB
+            for a in buckets):
+        raise ValueError("K6: buckets are three (16, nw, m) int32 tensors")
+    nw, m = X.shape[1:]
+    L, T, P = k6_shape(m)
+    bx, by, bz = (a.contiguous() for a in buckets)
+    part = torch.empty((nw, P, 2, 24), dtype=LIMB, device=X.device)
+    out = torch.empty((3, NLIMB, nw), dtype=LIMB, device=X.device)
+    p8, n0 = K.field_words(FQ)
+    lib = K.get_lib()
+    CF.launches["msm_window_reduce"] += 1     # one call: two CUDA kernels
+    K.check(lib.k6_msm_window_reduce(
+        bx.data_ptr(), by.data_ptr(), bz.data_ptr(), part.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), nw, m, L,
+        T.bit_length() - 1, P.bit_length() - 1, (T * L).bit_length() - 1,
+        p8, n0, K.one_words(FQ), K.stream_ptr(X)), "k6_msm_window_reduce")
+    return (out[0], out[1], out[2])
+
+
+def _fold_windows(sums: PD.PointArray, c: int) -> CH.G1Affine:
+    """The reference's host fold of the nw window sums (Jacobian, Montgomery
+    limbs): from the top window down, total = 2^c * total + window."""
+    total = None
+    for win in reversed(PD.unpack_jacobian(sums)):
+        if total is not None:
+            for _ in range(c):
+                total = CH.g1_add(total, total)
+        total = CH.g1_add(total, win)
+    return total
+
+
+def msm_device(scalars: Sequence[int], points, c: Optional[int] = None,
+               packed=None, device="cuda") -> CH.G1Affine:
+    """Pippenger MSM on `device` (the card unless the caller asks for the
+    CPU): sum_i scalars[i] * points[i] (scalars reduced mod r) as a host
+    affine point (None for the identity).  points: host affine list;
+    packed: a native basis (native_loader.pack_points_affine) covering the
+    points, read in its place.  c: window bits, by default
+    pick_window_bits(n)."""
+    from ..native_loader import fr_buf
+    dev = torch.device(device)
+    torch.empty(0, device=dev)       # no card: torch's CUDA error, here
+    n = len(scalars)
+    c = c or pick_window_bits(n)
+    digits = _scalars_to_digits(fr_buf([s % H.FR_MOD for s in scalars]), c, dev)
+    if packed is not None:
+        pts = PD.pack_affine(device=dev, packed=packed, n=n)
+    else:
+        pts = PD.pack_affine(points[:n], device=dev)
+    order, starts = bucket_layout(digits, c)
+    sums = msm_window_reduce(msm_bucket_sums(affine_words(pts), order, starts))
+    return _fold_windows(sums, c)
 
 
 def packed_basis(obj, attr: str, points):

@@ -1,0 +1,220 @@
+"""The port's device MSM (sha2cq_tpu_torch.ops.msm.msm_device) on the CPU,
+where it runs the plain versions of kernels K5 (bucket sums) and K6 (window
+reduction), against the JAX package's host MSMs (sha2cq_tpu.ops.msm
+.msm_host, the native Pippenger, and sha2cq_tpu.curves.host.g1_msm, the
+naive sum) -- the answer its slow tests pin the JAX msm_device to -- at
+several window sizes and edge cases; the digits against the JAX package's;
+K5's and K6's own index arithmetic mirrored in numpy; and the slice,
+ParamsKZG.commit through the device path, against the JAX package's
+commit."""
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from sha2cq_tpu.curves import host as RCH
+from sha2cq_tpu.ops import msm as RM
+from sha2cq_tpu_torch import native_loader as NL
+from sha2cq_tpu_torch.curves import device as PD
+from sha2cq_tpu_torch.curves import host as CH
+from sha2cq_tpu_torch.fields.host import FR_MOD
+from sha2cq_tpu_torch.ops import msm as M
+from tests.test_torch_mxu_ntt import one_torch_thread  # noqa: F401
+
+
+def _points(n, seed):
+    rng = random.Random(seed)
+    return [CH.g1_mul(CH.G1_GEN, rng.randrange(1, FR_MOD)) for _ in range(n)]
+
+
+def _edge_case(n=64, seed=7):
+    """Random scalars and points with: zero scalars, a repeated point under
+    the same scalar (a bucket doubles), P and -P under the same scalar (a
+    bucket cancels), identity points, and scalars >= r."""
+    rng = random.Random(seed)
+    pts = _points(n, seed)
+    sc = [rng.randrange(FR_MOD) for _ in range(n)]
+    sc[0] = sc[1] = 0
+    pts[5], sc[5] = pts[4], sc[4]
+    pts[9], sc[9] = CH.g1_neg(pts[8]), sc[8]
+    pts[12] = pts[13] = None
+    sc[14] = FR_MOD + 12345
+    sc[15] = 2 * FR_MOD - 1
+    sc[16] = (1 << 256) - 1
+    return sc, pts
+
+
+@pytest.mark.parametrize("c", [4, 8, None])
+def test_plain_device_msm_matches_the_host_msms(c):
+    sc, pts = _edge_case()
+    got = M.msm_device(sc, pts, c=c, device="cpu")
+    assert got == RM.msm_host(sc, pts)
+    assert got == RCH.g1_msm(sc, pts)
+
+
+def test_plain_device_msm_skewed_and_packed():
+    """All scalars equal (every point in one bucket of each window), read
+    from a native packed basis, and c = 5 (a 256-bit scalar does not fill
+    the top window)."""
+    pts = _points(48, 8)
+    sc = [0x1234567890ABCDEF1234567890ABCDEF * 977] * len(pts)
+    packed = NL.pack_points_affine(pts)
+    want = RCH.g1_msm(sc, pts)
+    assert M.msm_device(sc, pts, c=5, device="cpu") == want
+    if packed is not None:
+        assert M.msm_device(sc, None, c=8, packed=packed, device="cpu") == want
+
+
+@pytest.mark.parametrize("c", [4, 8, 13, 14, 15, 16])
+def test_digits_match_jax(c):
+    rng = random.Random(c)
+    sc = [rng.randrange(FR_MOD) for _ in range(30)] + [
+        0, 1, FR_MOD - 1, FR_MOD, FR_MOD + 7, (1 << 256) - 1, 1 << 253]
+    want = RM._scalars_to_digits(sc, c)
+    buf = NL.fr_buf([s % FR_MOD for s in sc])
+    got = M._scalars_to_digits(buf, c, "cpu")
+    assert got.shape == want.shape == ((256 + c - 1) // c, len(sc))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    assert M.pick_window_bits_v2(1 << 20) == RM.pick_window_bits_v2(1 << 20)
+
+
+def test_affine_words_round_trip():
+    """K5's point layout holds x and y in eight 32-bit words each and marks
+    the identity with zeros; a point that is not affine is refused."""
+    pts = _points(5, 10)
+    pts[2] = None
+    P = PD.pack_affine(pts)
+    words = M.affine_words(P)
+    assert words.shape == (5, 16) and words.dtype == torch.int32
+    assert not words[2].any() and words[0].any()
+    back = M._words_to_points(words)
+    assert PD.unpack_jacobian(back) == pts
+    for a, b in zip(back, P):
+        assert a[:, [0, 1, 3, 4]].equal(b[:, [0, 1, 3, 4]])
+    doubled = PD.point_double(P)
+    with pytest.raises(ValueError, match="affine"):
+        M.affine_words(doubled)
+
+
+def test_window_bits_rule():
+    """Below 2^20 points (HOST_THRESHOLD, where msm() starts to send MSMs
+    to the card) the reference's rule; from there the card's measured
+    choice, which is not the reference's 14 (its top window puts every
+    point in 4 buckets)."""
+    assert M.HOST_THRESHOLD == 1 << 20
+    for n in (1, 64, 5000, 1 << 16, M.HOST_THRESHOLD - 1):
+        assert M.pick_window_bits(n) == RM.pick_window_bits_v2(n)
+    c = M.pick_window_bits(M.HOST_THRESHOLD)
+    assert c == M.DEVICE_WINDOW_BITS and 14 < c <= 16
+    assert RM.pick_window_bits_v2(M.HOST_THRESHOLD) == 14
+    with pytest.raises(ValueError, match="power of two"):
+        M.k6_shape(48)
+
+
+@pytest.mark.parametrize("c", [4, 8, 14, 16])
+def test_k5_walk_mirror(c):
+    """K5's indexing, thread by thread, in numpy: thread e is bucket
+    b = e % m of window w = e // m and walks order[w, starts[w, b] :
+    starts[w, b + 1]]; the walk must visit exactly the points whose digit
+    is b, in index order, and bucket 0 nothing."""
+    rng = np.random.default_rng(c)
+    n, m = 300, 1 << c
+    sc = [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(n)]
+    sc[:40] = [sc[40]] * 40                          # a long segment
+    digits = M._scalars_to_digits(NL.fr_buf(sc), c, "cpu")
+    order, starts = M.bucket_layout(digits, c)
+    d, o, s = digits.numpy(), order.numpy().ravel(), starts.numpy().ravel()
+    nw = d.shape[0]
+    assert starts.shape == (nw, m + 1) and order.dtype == starts.dtype
+    for e in range(nw * m):
+        w, b = e // m, e % m
+        if b == 0:
+            continue
+        seg = s[w * (m + 1) + b], s[w * (m + 1) + b + 1]
+        walked = [int(o[w * n + k]) for k in range(*seg)]
+        assert walked == np.flatnonzero(d[w] == b).tolist()
+
+
+@pytest.mark.parametrize("m", [1, 16, 256, 1 << 14, 1 << 16])
+def test_k6_tree_mirror(m):
+    """K6's indexing and combining steps in numpy, with integers standing
+    for points (add is +, doubling is *2): per window, thread t of block p
+    sums buckets p*T*L + j*T + t; the block tree and the window tree must
+    give sum_b b * B_b."""
+    L, T, P = M.k6_shape(m)
+    assert L * T * P == m and T <= M.K6_THREADS and P <= M.K6_THREADS
+    rng = np.random.default_rng(m)
+    B = rng.integers(0, 1 << 20, size=m).astype(object)
+    S, W = [], []
+    for p in range(P):                    # first launch, block p
+        sS, sW = [], []
+        for t in range(T):
+            base = p * T * L + t
+            run = acc = 0
+            for j in range(L - 1, 0, -1):
+                run += B[base + j * T]
+                acc += run
+            sS.append(run + B[base])
+            sW.append(acc * T)
+        for lev in range(T.bit_length() - 1):
+            for t in range(0, T, 2 << lev):
+                r = t + (1 << lev)
+                sS[t], sW[t] = sS[t] + sS[r], sW[t] + sW[r] + (sS[r] << lev)
+        S.append(sS[0])
+        W.append(sW[0])
+    V = [0] * P                           # second launch
+    for lev in range(P.bit_length() - 1):
+        for t in range(0, P, 2 << lev):
+            r = t + (1 << lev)
+            S[t], V[t], W[t] = (S[t] + S[r], V[t] + V[r] + (S[r] << lev),
+                                W[t] + W[r])
+    assert W[0] + V[0] * T * L == sum(b * B[b] for b in range(m))
+
+
+def test_plain_kernels_match_jax_window_sums():
+    """K5 then K6 (plain) give, per window, the same point as summing
+    b * B_b on the host from the JAX package's digits."""
+    sc, pts = _edge_case(40, 9)
+    c = 4
+    digits = RM._scalars_to_digits(sc, c)
+    P = PD.pack_affine(pts)
+    order, starts = M.bucket_layout(torch.from_numpy(
+        digits.astype(np.int32)), c)
+    sums = PD.unpack_jacobian(M.msm_window_reduce(
+        M.msm_bucket_sums(M.affine_words(P), order, starts)))
+    for w in range(digits.shape[0]):
+        want = None
+        for i, pt in enumerate(pts):
+            want = CH.g1_add(want, CH.g1_mul(pt, int(digits[w, i]))
+                             if pt is not None else None)
+        assert sums[w] == want
+
+
+def test_commit_through_the_device_path_matches_jax(monkeypatch):
+    """The slice: the port's ParamsKZG.commit and commit_lagrange with the
+    port's HOST_THRESHOLD lowered (so msm() takes msm_device, here on the
+    CPU, reading the packed basis) equal the JAX package's commitments on
+    the same SRS and inputs."""
+    from sha2cq_tpu.poly.kzg.params import ParamsKZG as RParams
+    from sha2cq_tpu_torch.poly.kzg.params import ParamsKZG
+    calls = []
+    device_msm = M.msm_device
+
+    def on_cpu(*a, **kw):
+        calls.append(kw.get("packed") is not None)
+        return device_msm(*a, device="cpu", **kw)
+
+    monkeypatch.setattr(M, "HOST_THRESHOLD", 16)
+    monkeypatch.setattr(M, "msm_device", on_cpu)
+    k, s = 5, 0x5EED1234
+    rng = random.Random(3)
+    coeffs = [rng.randrange(FR_MOD) for _ in range(1 << k)]
+    port, ref = ParamsKZG.setup_from_toxic_waste(k, s), \
+        RParams.setup_from_toxic_waste(k, s)
+    assert port.commit(coeffs) == ref.commit(coeffs)
+    assert port.commit(coeffs[:20]) == ref.commit(coeffs[:20])
+    assert port.commit_lagrange(coeffs) == ref.commit_lagrange(coeffs)
+    assert port.commit(coeffs[:8]) == ref.commit(coeffs[:8])   # host path
+    want = [NL.get_lib() is not None] * 3
+    assert calls == want

@@ -27,6 +27,7 @@ MAIN_PATH = [
     "sha2cq_tpu_torch.ops.cuda_field",
     "sha2cq_tpu_torch.ops.kernels",
     "sha2cq_tpu_torch.ops.msm",
+    "sha2cq_tpu_torch.curves.device",
     "sha2cq_tpu_torch.ops.ntt",
     "sha2cq_tpu_torch.fields.device",
     "sha2cq_tpu_torch.poly.domain",
@@ -257,6 +258,7 @@ def test_port_proves_without_the_jax_package_beside_it(tmp_path):
     ("plonk.prover.prewarm_prover", "device", "cuda"),
     ("plonk.device_eval.get_h_fn", "device", "cuda"),
     ("plonk.device_eval.build_h_fn", "device", "cuda"),
+    ("ops.msm.msm_device", "device", "cuda"),
 ])
 def test_entry_points_default_to_the_card(entry, param, default):
     """The entry points run on the card unless the caller asks for the CPU

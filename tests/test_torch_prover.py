@@ -67,7 +67,32 @@ def test_prewarm_builds_the_module_once():
     assert fn.prog.instrs.shape[1] == 4
 
 
-def test_device_msm_is_not_ported():
+def test_msm_sends_large_inputs_to_the_device(monkeypatch):
+    """msm() hands exactly the MSMs of HOST_THRESHOLD points or more to
+    msm_device (with the caller's packed basis), and smaller ones to
+    msm_host: recording stubs, no 2^20-point computation."""
     from sha2cq_tpu_torch.ops import msm
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        msm.msm([1] * msm.HOST_THRESHOLD, [])
+    calls = []
+    monkeypatch.setattr(msm, "msm_host", lambda s, p, packed=None:
+                        calls.append(("host", len(s), packed)))
+    monkeypatch.setattr(msm, "msm_device", lambda s, p, packed=None:
+                        calls.append(("device", len(s), packed)))
+    for n in (0, 1, msm.HOST_THRESHOLD - 1, msm.HOST_THRESHOLD,
+              msm.HOST_THRESHOLD + 1):
+        msm.msm([1] * n, [], packed=n)
+    t = msm.HOST_THRESHOLD
+    assert calls == [("host", 0, 0), ("host", 1, 1), ("host", t - 1, t - 1),
+                     ("device", t, t), ("device", t + 1, t + 1)]
+
+
+def test_device_msm_without_a_card_raises():
+    """msm_device runs on the card unless the caller asks for the CPU:
+    with no card it raises torch's CUDA error before any work, and does
+    not fall back to the CPU."""
+    from sha2cq_tpu_torch.curves import host as CH
+    from sha2cq_tpu_torch.ops import msm
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            msm.msm_device([3, 5], [CH.G1_GEN, CH.G1_GEN])
+    assert msm.msm_device([3, 5], [CH.G1_GEN, CH.G1_GEN], device="cpu") == \
+        CH.g1_mul(CH.G1_GEN, 8)
