@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--parent DIR]
 
 --parent DIR: DIR holds an older tree of the repo (its sha2cq_tpu_torch/);
-its kernel library is built too, and its K1, K2, K3 and K4 are timed against
-this tree's on the same inputs, in turns (old, new, new, old).  (K5 and K6
-have no parent yet.)
+its kernel library is built too, and its K1, K2, K3 and K4 (under this
+tree's wrappers: their C entries are unchanged) are timed against this
+tree's on the same inputs, in turns (old, new, new, old); so are its K5 and
+K6 (called with the C arguments of the tree before K5's chunked redesign)
+on the 2^20-point commit's inputs, and its K5 once on the 0/1 column's.
 
 Phases, each printing its own line (any failure exits nonzero; no phase
 catches an error and goes on):
@@ -56,12 +58,15 @@ catches an error and goes on):
    K6 -> host fold) cold and warm, equal to the native host Pippenger
    (ops/msm.msm_host) on the same packed basis; K1, K5 and K6 launched by
    the commit; the pack-and-digit seconds, the host seconds, the SRS build
-   seconds, the peak device bytes; commits of a 0/1 column and of a 16-bit
-   column (K5's skewed case) against the host MSM, both timed; K5 / K6
-   device ms (CUDA events) with bound and share at window bits 14, 15 and
-   16; and at the path's window bits K5 and K6 against their plain
-   versions on the commit's own points, digits and bucket layout (affine
-   and limb equality; the kernels line reports this shape).
+   seconds, the peak device bytes; commits of a 0/1 column, a 16-bit
+   column and one scalar for every point (each puts half or all of a
+   window's points in one bucket) against the host MSM, both timed; at the
+   path's window bits K5 and K6 against their plain versions on each
+   column's own points, digits and bucket layout (affine and limb
+   equality, ms, bound and share beside the longest bucket; the kernels
+   line reports the uniform commit's); K5 / K6 device ms (CUDA events)
+   with bound and share at window bits 14, 15 and 16; and K5 on every
+   skewed layout and at c = 14 within 1.5x of its uniform time.
 
 The last lines are the card's name and power limit, the kernels JSON object
 and the result object {"ok": true, "device": {...}}.
@@ -70,7 +75,6 @@ before the port loads.  Needs only sha2cq_tpu_torch/ (and native/fieldops.c)
 beside it.
 """
 import argparse
-import ctypes
 import gc
 import importlib.util
 import json
@@ -339,7 +343,6 @@ def main() -> None:
 
     gen = torch.Generator().manual_seed(SEED)
     p = D.FR.p
-    p8, n0 = K.field_words(D.FR)
     kernels = {}
 
     def record(name, out, ref, ms, plain_ms, nbytes, mads, report=False,
@@ -367,6 +370,19 @@ def main() -> None:
     def stream():
         return torch.cuda.current_stream(dev).cuda_stream
 
+    def parent(fn):
+        """fn with the parent tree's kernel library in place of this tree's:
+        the parent's kernels under this tree's wrappers, for the kernels
+        whose C entries did not change (K1-K4)."""
+        def call():
+            saved = K._lib
+            K._lib = plib
+            try:
+                return fn()
+            finally:
+                K._lib = saved
+        return call
+
     # ---- phase 2a: K1 and K2 at the path's shapes ------------------------
     N1 = 123 * 8192
     a = rand_limbs(gen, (N1,), dev, p)
@@ -379,11 +395,9 @@ def main() -> None:
            cuda_time_ms(lambda: D.mont_mul_plain(a, b), 3),
            3 * 64 * N1, N1 * MONT_MADS, shape=[16, N1])
     if plib is not None:
-        old = torch.empty_like(out)
-        alternate("mont_mul", lambda: plib.k1_mont_mul(
-            a.data_ptr(), b.data_ptr(), old.data_ptr(), N1, N1, N1, p8, n0,
-            stream()), lambda: CF.mont_mul(a, b), 20, shape=[16, N1])
-        if not torch.equal(old, out):
+        alternate("mont_mul", parent(lambda: CF.mont_mul(a, b)),
+                  lambda: CF.mont_mul(a, b), 20, shape=[16, N1])
+        if not torch.equal(parent(lambda: CF.mont_mul(a, b))(), out):
             fail("the parent's K1 and this tree's disagree")
     # the c2e ZETA pre-multiply: a 64-column chunk times a (16, 1, n) row
     x = rand_limbs(gen, (64, 8192), dev, p)
@@ -400,8 +414,6 @@ def main() -> None:
     # K2 at (32, 512, 2048), the k=18 coset route's shape (m2 = 512 rows, a
     # 4-column chunk times m1 = 512), in every mode, and at (32, 32, 32768),
     # the k=13 residual level's scalar-mode shape
-    from sha2cq_tpu_torch.ops.cuda_field import _mult_index, fold_consts
-    folds = K.u32_array([v for r_ in fold_consts(D.FR) for v in r_])
 
     def k2_mult(mode, M, X):
         """(multiplier, flags, multiplier elements) of one K2 mode."""
@@ -432,16 +444,11 @@ def main() -> None:
                    shape=[32, M, X], mode=mode,
                    on_h_path=mode in ("major", "scalar"))
             if plib is not None:
-                mls, mms, div, mod = _mult_index(mult, M, X, kw.get(
-                    "mult_is_tile", True), kw.get("mult_minor", 0),
-                    kw.get("mult_major", 0))
-                old = torch.empty_like(out)
-                alternate("planes_to_limbs_mul", lambda: plib.k2_planes_to_limbs_mul(
-                    planes.data_ptr(), mult.data_ptr(), old.data_ptr(), M, X, mls,
-                    mms, div, mod, p8, n0, folds, stream()),
-                    lambda: CF.planes_to_limbs_mul(planes, mult, **kw), 20,
-                    shape=[32, M, X], mode=mode)
-                if not torch.equal(old, out):
+                old = parent(lambda: CF.planes_to_limbs_mul(planes, mult, **kw))
+                alternate("planes_to_limbs_mul", old,
+                          lambda: CF.planes_to_limbs_mul(planes, mult, **kw), 20,
+                          shape=[32, M, X], mode=mode)
+                if not torch.equal(old(), out):
                     fail("the parent's K2 and this tree's disagree")
         del planes, mult, out, ref
 
@@ -500,15 +507,12 @@ def main() -> None:
                plain_columns=check_cols or cols)
         del ref, got, sub
         if plib is not None:
-            old = torch.empty_like(out)
-            alternate("ntt_radix2", lambda: plib.k4_ntt_radix2(
-                arg.data_ptr(), int(arg.dtype == torch.int16), old.data_ptr(),
-                tw.data_ptr(), cols, ek, p8, n0, stream()),
-                lambda: CF.ntt_radix2(arg, tw, ek), iters,
-                timer=graph_time_ms, shape=list(arg.shape), case=case_name)
-            if not torch.equal(old, out):
+            old = parent(lambda: CF.ntt_radix2(arg, tw, ek))
+            alternate("ntt_radix2", old, lambda: CF.ntt_radix2(arg, tw, ek),
+                      iters, timer=graph_time_ms, shape=list(arg.shape),
+                      case=case_name)
+            if not torch.equal(old(), out):
                 fail(f"the parent's K4 and this tree's disagree ({case_name})")
-            del old
         del out
         torch.cuda.empty_cache()
     del k4_cases, arg
@@ -552,20 +556,9 @@ def main() -> None:
                streams=len(loaded.split.starts) - 1)
         del ref
         if plib is not None:
-            old = torch.empty_like(out)
-            arr_p = (ctypes.c_uint64 * 8)(*[groups[g].data_ptr()
-                                            for g in h_vm.GROUPS])
-            arr_c = (ctypes.c_int * 8)(*loaded.cols)
-            arr_16 = (ctypes.c_int * 8)(*([1] * 8))     # all int16 here
-            split = loaded.split          # the parent's K3 takes this form
-            starts = (ctypes.c_int * (h_vm.K3_MAX_STREAMS + 1))(*split.starts)
-            alternate("h_vm_run", lambda: plib.k3_h_vm_run(
-                loaded.kernel_instrs.data_ptr(), loaded.next_load.data_ptr(),
-                starts, len(split.starts) - 1, scal.data_ptr(), nsc, arr_p,
-                arr_c, arr_16, old.data_ptr(), rows, split.out_reg,
-                split.n_reg, p8, n0, stream()), k3, iters, shape=[16, rows],
-                case=case_name)
-            if not torch.equal(old, out):
+            alternate("h_vm_run", parent(k3), k3, iters, shape=[16, rows],
+                      case=case_name)
+            if not torch.equal(parent(k3)(), out):
                 fail("the parent's K3 and this tree's disagree")
         del groups, out, loaded
         torch.cuda.empty_cache()
@@ -848,35 +841,134 @@ def main() -> None:
             fail(f"kernel {name} was not launched by the 2^20-point commit")
     for name in ("msm_bucket_sums", "msm_window_reduce"):
         kernels[name]["launches"] = commits["warm"][2][name]
-    # columns of small values, as a circuit's witness mostly holds: bits put
-    # about half the points in bucket 1 of window 0, 16-bit words (c = 15)
-    # in bucket 1 of window 1, and one K5 thread walks each such bucket
+    # columns of small values, as a circuit's witness mostly holds, and one
+    # scalar for every point: bits put about half the points in bucket 1 of
+    # window 0, 16-bit words (c = 15) in bucket 1 of window 1, one scalar
+    # all of them in one bucket of every window; K5 cuts each such bucket
+    # into chunks
     c_full = M.pick_window_bits(n_msm)
-    for kind, top in (("bits", 2), ("words16", 1 << 16)):
-        col = [rng.randrange(top) for _ in range(n_msm)]
-        starts = M.bucket_layout(M._scalars_to_digits(
-            NL.fr_buf(col), c_full, dev), c_full)[1]
-        seg = (starts[:, 2:] - starts[:, 1:-1]).max().item()
+    columns = {"uniform": coeffs,
+               "bits": [rng.randrange(2) for _ in range(n_msm)],
+               "words16": [rng.randrange(1 << 16) for _ in range(n_msm)],
+               "equal": [rng.randrange(p)] * n_msm}
+    for kind in ("bits", "words16", "equal"):
+        col = columns[kind]
         t0 = time.perf_counter()
         point = params.commit(col)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         want = M.msm_host(col, params.g, packed=packed)
-        say("msm_commit_skewed", scalars=kind, values_below=top,
-            equal_to_host=point == want, device_s=dev_s,
-            host_native_s=time.perf_counter() - t0, longest_bucket=seg)
+        host_s = time.perf_counter() - t0
+        say("msm_commit_skewed", scalars=kind, equal_to_host=point == want,
+            device_s=dev_s, host_native_s=host_s,
+            faster_than_host=dev_s < host_s)
         if point != want:
             fail(f"the card's commitment of a {kind} column differs from "
                  "the native host MSM's")
-        del col, starts
-    # one commit's stages, and K5 / K6 by window bits at full width
+    # K5 and K6 against their plain versions on each column's own points,
+    # digits and bucket layout at the path's window bits (the kernels line
+    # reports the uniform commit's)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    buf = NL.fr_buf([x % p for x in coeffs])
     words = M.affine_words(PD.pack_affine(device=dev, packed=packed, n=n_msm))
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
+    fq8 = K.field_words(D.FQ) + (K.one_words(D.FQ),)
+    k5_ms = {}
+    for kind, col in columns.items():
+        digits = M._scalars_to_digits(NL.fr_buf([x % p for x in col]),
+                                      c_full, dev)
+        order, starts = M.bucket_layout(digits, c_full)
+        nw, m = digits.shape[0], 1 << c_full
+        live = int((digits != 0).sum())
+        seg = (starts[:, 2:] - starts[:, 1:-1]).max().item()
+        del digits
+
+        def k5():
+            return M.msm_bucket_sums(words, order, starts)
+
+        buckets = k5()
+        torch.cuda.synchronize()
+        ref, plain_ms = timed_once(
+            lambda: M.bucket_sums_plain(words, order, starts))
+        if not same_points(buckets, ref):
+            fail(f"K5's bucket sums at 2^20 points ({kind}) are not its "
+                 "plain version's points")
+        k5_ms[kind] = cuda_time_ms(k5, 3)
+        record("msm_bucket_sums", torch.stack(buckets), torch.stack(ref),
+               k5_ms[kind], plain_ms, *msm_work(live, nw, m)[0],
+               report=kind == "uniform", shape=[nw, m], points=n_msm,
+               window_bits=c_full, scalars=kind, longest_bucket=seg,
+               affine_equal=True)
+        del ref
+        sums = M.msm_window_reduce(buckets)
+        torch.cuda.synchronize()
+        ref, plain_ms = timed_once(lambda: M.window_reduce_plain(buckets))
+        if not same_points(sums, ref):
+            fail(f"K6's window sums at 2^20 points ({kind}) are not its "
+                 "plain version's points")
+        record("msm_window_reduce", torch.stack(sums), torch.stack(ref),
+               cuda_time_ms(lambda: M.msm_window_reduce(buckets), 3),
+               plain_ms, *msm_work(0, nw, m)[1], report=kind == "uniform",
+               shape=[nw, m], window_bits=c_full, scalars=kind,
+               longest_bucket=seg, affine_equal=True)
+        del ref
+        if plib is not None and kind in ("uniform", "bits"):
+            # the parent's K5 (one thread a bucket) and K6 (runs of 16,
+            # blocks of 128) on the same inputs, with their own arguments
+            old5 = torch.empty((3, 16, nw, m), dtype=torch.int32, device=dev)
+
+            def parent_k5():
+                rc = plib.k5_msm_bucket_sums(
+                    words.data_ptr(), order.data_ptr(), starts.data_ptr(),
+                    old5[0].data_ptr(), old5[1].data_ptr(),
+                    old5[2].data_ptr(), nw, n_msm, m, *fq8, stream())
+                if rc != 0:
+                    fail(f"the parent's K5 failed to launch ({rc})")
+
+            if kind == "uniform":
+                alternate("msm_bucket_sums", parent_k5, k5, 3,
+                          shape=[nw, m], window_bits=c_full, scalars=kind)
+                L6 = min(16, m)
+                T6 = min(128, m // L6)
+                P6 = m // (L6 * T6)
+                part = torch.empty((nw, P6, 2, 24), dtype=torch.int32,
+                                   device=dev)
+                old6 = torch.empty((3, 16, nw), dtype=torch.int32, device=dev)
+
+                def parent_k6():
+                    rc = plib.k6_msm_window_reduce(
+                        buckets[0].data_ptr(), buckets[1].data_ptr(),
+                        buckets[2].data_ptr(), part.data_ptr(),
+                        old6[0].data_ptr(), old6[1].data_ptr(),
+                        old6[2].data_ptr(), nw, m, L6, T6.bit_length() - 1,
+                        P6.bit_length() - 1, (T6 * L6).bit_length() - 1,
+                        *fq8, stream())
+                    if rc != 0:
+                        fail(f"the parent's K6 failed to launch ({rc})")
+
+                alternate("msm_window_reduce", parent_k6,
+                          lambda: M.msm_window_reduce(buckets), 3,
+                          shape=[nw, m], window_bits=c_full, scalars=kind)
+                torch.cuda.synchronize()
+                if not same_points(old6, sums):
+                    fail("the parent's K6 and this tree's disagree")
+                del part, old6
+            else:
+                _, old_ms = timed_once(parent_k5)
+                say("parent_vs_new", kernel="msm_bucket_sums",
+                    timer="timed_once", old_ms=[old_ms], new_ms=[k5_ms[kind]],
+                    speedup=old_ms / k5_ms[kind], shape=[nw, m],
+                    window_bits=c_full, scalars=kind, longest_bucket=seg)
+            torch.cuda.synchronize()
+            if not same_points(old5, buckets):
+                fail("the parent's K5 and this tree's disagree")
+            del old5
+        del order, starts, buckets, sums
+        torch.cuda.empty_cache()
+    # K5 / K6 by window bits at full width, uniform scalars
+    buf = NL.fr_buf([x % p for x in coeffs])
     for c in (14, 15, 16):
         t0 = time.perf_counter()
         digits = M._scalars_to_digits(buf, c, dev)
@@ -886,46 +978,32 @@ def main() -> None:
         nw, m = digits.shape[0], 1 << c
         (b5, by5), (b6, by6) = (bound_ms(*w) for w in msm_work(
             int((digits != 0).sum()), nw, m))
-        def k5():
-            return M.msm_bucket_sums(words, order, starts)
-
-        buckets, first_ms = timed_once(k5)
-        if c == c_full:          # the commit's own inputs: each kernel vs plain
-            ref, plain_ms = timed_once(
-                lambda: M.bucket_sums_plain(words, order, starts))
-            if not same_points(buckets, ref):
-                fail("K5's bucket sums at 2^20 points are not its plain "
-                     "version's points")
-            record("msm_bucket_sums", torch.stack(buckets), torch.stack(ref),
-                   cuda_time_ms(k5, 3), plain_ms, *msm_work(
-                       int((digits != 0).sum()), nw, m)[0], report=True,
-                   shape=[nw, m], points=n_msm, window_bits=c,
-                   affine_equal=True)
-            sums = M.msm_window_reduce(buckets)
-            torch.cuda.synchronize()
-            ref, plain_ms = timed_once(lambda: M.window_reduce_plain(buckets))
-            if not same_points(sums, ref):
-                fail("K6's window sums at 2^20 points are not its plain "
-                     "version's points")
-            record("msm_window_reduce", torch.stack(sums), torch.stack(ref),
-                   cuda_time_ms(lambda: M.msm_window_reduce(buckets), 3),
-                   plain_ms, *msm_work(0, nw, m)[1], report=True,
-                   shape=[nw, m], window_bits=c, affine_equal=True)
-            del ref, sums
-        # c = 14 puts all points in the top window's 4 buckets: seconds a launch
-        k5 = [first_ms] if c == 14 else [cuda_time_ms(k5, 3) for _ in range(3)]
+        buckets = M.msm_bucket_sums(words, order, starts)
+        k5 = [cuda_time_ms(lambda: M.msm_bucket_sums(words, order, starts), 3)
+              for _ in range(3)]
         k6 = [cuda_time_ms(lambda: M.msm_window_reduce(buckets), 3)
               for _ in range(3)]
+        if c == 14:
+            k5_ms["uniform c = 14"] = min(k5)
         seg = (starts[:, 2:] - starts[:, 1:-1]).max().item()
         say("msm_kernel", window_bits=c, windows=nw,
             chosen=c == M.pick_window_bits(n_msm), k5_ms=k5, k5_bound_ms=b5,
             k5_bound_by=by5, k5_share=b5 / min(k5), k6_ms=k6,
             k6_bound_ms=b6, k6_bound_by=by6, k6_share=b6 / min(k6),
-            longest_bucket=seg, digits_and_order_s=digit_s,
-            scalars_and_points_s=pack_s)
+            k5_plus_k6_ms=min(k5) + min(k6), longest_bucket=seg,
+            digits_and_order_s=digit_s, scalars_and_points_s=pack_s)
         del digits, order, starts, buckets
         torch.cuda.empty_cache()
-    del params, packed, words, buf, coeffs
+    # K5's time no longer follows the longest bucket: each skewed layout,
+    # and c = 14, within 1.5x of uniform scalars at the path's window bits
+    ratios = {k: v / k5_ms["uniform"] for k, v in k5_ms.items()
+              if k != "uniform"}
+    say("msm_k5_skew", window_bits=c_full, uniform_ms=k5_ms["uniform"],
+        ratio_to_uniform=ratios)
+    if max(ratios.values()) > 1.5:
+        fail(f"K5 on a skewed layout takes over 1.5x its uniform time: "
+             f"{ratios}")
+    del params, packed, words, buf, coeffs, columns
 
     say("done", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)

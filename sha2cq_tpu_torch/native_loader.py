@@ -81,15 +81,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.bn_pairing_check.restype = ctypes.c_int
         lib.fq_sqrt_batch.argtypes = [U64P, ctypes.c_long, U64P]
         lib.g1_jac_to_affine_batch.argtypes = [U64P, ctypes.c_long, U64P]
-        LP = ctypes.POINTER(ctypes.c_long)
-        lib.g1_msm_multi.argtypes = [ctypes.POINTER(U64P), ctypes.POINTER(LP),
-                                     ctypes.POINTER(U64P), LP,
-                                     ctypes.c_long, U64P]
-        lib.g1_msm_grouped_multi.argtypes = [ctypes.POINTER(U64P),
-                                             ctypes.POINTER(LP),
-                                             ctypes.POINTER(LP), LP,
-                                             ctypes.POINTER(U64P),
-                                             ctypes.c_long, U64P]
         lib.fr_ntt_multi.argtypes = [ctypes.POINTER(U64P), U64P,
                                      ctypes.c_long, ctypes.c_int,
                                      ctypes.c_long, U64P]
@@ -205,90 +196,37 @@ def native_msm_indexed(scalars: List[int], indices: List[int],
 
 
 def native_msm_multi(jobs) -> Optional[List[tuple]]:
-    """K independent MSMs in ONE native call (g1_msm_multi: OpenMP across
-    jobs).  jobs: list of (packed_basis, indices_or_None, scalars_list) —
-    packed_basis from pack_points_affine, scalars reduced mod r by the
-    caller.  Returns a list of Jacobian tuples, or None when native is
-    unavailable or any job's basis isn't packed."""
-    lib = get_lib()
-    if lib is None or any(j[0] is None for j in jobs):
-        return None
-    k = len(jobs)
-    if k == 0:
-        return []
-    U64P = ctypes.POINTER(ctypes.c_uint64)
-    LP = ctypes.POINTER(ctypes.c_long)
-    bases = (U64P * k)()
-    idxs = (LP * k)()
-    scal = (U64P * k)()
-    sizes = (ctypes.c_long * k)()
-    import numpy as np
-    keep = []  # keep per-job buffers alive across the call
-    for j, (packed, indices, scalars) in enumerate(jobs):
-        bases[j] = ctypes.cast(packed, U64P)
-        if indices is None:
-            idxs[j] = None
-        elif isinstance(indices, np.ndarray):
-            # int64 index array — pointer used directly (per-element ctypes
-            # marshalling of ~100k-row index lists measured seconds/proof)
-            ia = np.ascontiguousarray(indices, dtype=np.int64)
-            keep.append(ia)
-            idxs[j] = ctypes.cast(ia.ctypes.data_as(LP), LP)
-        else:
-            ib = (ctypes.c_long * len(indices))(*indices)
-            keep.append(ib)
-            idxs[j] = ctypes.cast(ib, LP)
-        if isinstance(scalars, np.ndarray):
-            # canonical (n, 4) u64 limb buffer — used directly, no packing
-            buf = np.ascontiguousarray(scalars)
-            keep.append(buf)
-            scal[j] = _u64p(buf)
-            sizes[j] = buf.shape[0]
-        else:
-            sb = _pack_scalars(scalars)
-            keep.append(sb)
-            scal[j] = ctypes.cast(sb, U64P)
-            sizes[j] = len(scalars)
-    out = (ctypes.c_uint64 * (12 * k))()
-    lib.g1_msm_multi(bases, idxs, scal, sizes, ctypes.c_long(k), out)
-    return [_unpack_jac(out, j) for j in range(k)]
+    """K independent MSMs in ONE native call (g1_msm_unified, mode 0:
+    OpenMP across jobs).  jobs: list of (packed_basis, indices_or_None,
+    scalars) — packed_basis from pack_points_affine, scalars a list (reduced
+    mod r here, once) or a canonical (n, 4) u64 buffer, indices a list or
+    an int64 array.  Returns a list of Jacobian tuples, or None when native
+    is unavailable or any job's basis isn't packed; raises MemoryError when
+    the C side could not allocate a job (its slot would read as the
+    identity)."""
+    res = native_msm_unified([("p", packed, indices, scalars)
+                              for packed, indices, scalars in jobs])
+    return raise_on_failed_jobs(res, "native_msm_multi")
 
 
 def native_msm_grouped_multi(jobs) -> Optional[List[tuple]]:
-    """K grouped sparse MSMs in ONE native call (g1_msm_grouped_multi,
+    """K grouped sparse MSMs in ONE native call (g1_msm_unified, mode 1:
     OpenMP across jobs).  jobs: list of (packed_basis, rows, starts,
     scalars) — rows/starts contiguous int64 arrays (CSR: rows sorted by
     group, starts of length ngroups+1), scalars a (ngroups, 4) u64 limb
-    buffer.  Returns Jacobian tuples, or None when native is unavailable."""
-    lib = get_lib()
-    if lib is None or any(j[0] is None for j in jobs):
-        return None
-    k = len(jobs)
-    if k == 0:
-        return []
-    import numpy as np
-    U64P = ctypes.POINTER(ctypes.c_uint64)
-    LP = ctypes.POINTER(ctypes.c_long)
-    bases = (U64P * k)()
-    rows = (LP * k)()
-    starts = (LP * k)()
-    ngroups = (ctypes.c_long * k)()
-    scal = (U64P * k)()
-    keep = []
-    for j, (packed, rw, st, sc) in enumerate(jobs):
-        bases[j] = ctypes.cast(packed, U64P)
-        ra = np.ascontiguousarray(rw, dtype=np.int64)
-        sa = np.ascontiguousarray(st, dtype=np.int64)
-        sb = np.ascontiguousarray(sc)
-        keep.extend((ra, sa, sb))
-        rows[j] = ctypes.cast(ra.ctypes.data_as(LP), LP)
-        starts[j] = ctypes.cast(sa.ctypes.data_as(LP), LP)
-        ngroups[j] = sa.shape[0] - 1
-        scal[j] = _u64p(sb)
-    out = (ctypes.c_uint64 * (12 * k))()
-    lib.g1_msm_grouped_multi(bases, rows, starts, ngroups, scal,
-                             ctypes.c_long(k), out)
-    return [_unpack_jac(out, j) for j in range(k)]
+    buffer.  Returns Jacobian tuples, or None when native is unavailable;
+    raises MemoryError when the C side could not allocate a job."""
+    res = native_msm_unified([("g", packed, rows, starts, scalars)
+                              for packed, rows, starts, scalars in jobs])
+    return raise_on_failed_jobs(res, "native_msm_grouped_multi")
+
+
+def raise_on_failed_jobs(res, name: str):
+    if res is not None and any(r is None for r in res):
+        failed = [j for j, r in enumerate(res) if r is None]
+        raise MemoryError(f"{name}: the native MSM could not allocate "
+                          f"job(s) {failed}")
+    return res
 
 
 def native_msm_unified(jobs) -> Optional[List[Optional[tuple]]]:
@@ -297,8 +235,8 @@ def native_msm_unified(jobs) -> Optional[List[Optional[tuple]]]:
     tail-idle cores of the indexed batch instead of running after it).
     jobs: list of ("p", packed, indices_or_None, scalars) or
     ("g", packed, rows, starts, scalars).  Returns one Jacobian tuple per
-    job (None for a job the native side failed to allocate — caller falls
-    back per-job), or None when native is unavailable entirely."""
+    job (None for a job the native side failed to allocate: its status is
+    nonzero), or None when native is unavailable entirely."""
     lib = get_lib()
     if lib is None or any(j[1] is None for j in jobs):
         return None

@@ -132,12 +132,12 @@ def _bind(lib):
     lib.k4_ntt_radix2.argtypes = [vp, ci, vp, vp, cl, ci, ci, vp, vp,
                                   ctypes.c_uint32, vp]
     lib.k4_ntt_radix2.restype = ci
-    lib.k5_msm_bucket_sums.argtypes = [vp, vp, vp, vp, vp, vp, cl, cl, cl,
-                                       vp, ctypes.c_uint32, vp, vp]
+    lib.k5_msm_bucket_sums.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                       cl, cl, cl, vp, ctypes.c_uint32, vp,
+                                       vp]
     lib.k5_msm_bucket_sums.restype = ci
     lib.k6_msm_window_reduce.argtypes = [vp, vp, vp, vp, vp, vp, vp, cl, cl,
-                                         cl, cl, cl, cl, vp, ctypes.c_uint32,
-                                         vp, vp]
+                                         vp, ctypes.c_uint32, vp, vp]
     lib.k6_msm_window_reduce.restype = ci
     return lib
 

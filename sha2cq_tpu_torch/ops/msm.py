@@ -34,14 +34,18 @@ HOST_THRESHOLD = 1 << 20
 
 # Window bits of the device MSM from HOST_THRESHOLD points, chosen on the
 # card at 2^20 points (PERF.md, K5/K6 by window size; larger n unmeasured):
-# 15 took less K5 + K6 time than 16 (K6 reduces half the buckets).  The
-# reference's rule gives 14 there, whose top window holds 2 bits of a scalar
-# below 2^254: all points fall into 4 buckets, and K5, one thread per
-# bucket, walks them in series.
+# K5 + K6 took 4.86 ms at 15 against 5.11 at the reference's 14 and 5.18 at
+# 16 (NVIDIA H100 80GB HBM3, 700 W, uniform scalars, one call): 14 has 9%
+# more live digits for K5, 16 twice the buckets for K6.  The chunked K5 no
+# longer slows down at 14, where the top window puts every point in 4
+# buckets (within 1.07x of its time at 15).
 DEVICE_WINDOW_BITS = 15
 
-K6_RUN = 16         # buckets a K6 thread sums (csrc/msm.cu)
-K6_THREADS = 128    # most threads of a K6 block: csrc/msm.cu's K6_MAX
+# csrc/msm.cu's constants of the same names (a test holds them equal)
+K5_CHUNK = 32       # sorted positions a K5 thread adds
+K6_RUN = 16         # buckets a K6 thread sums
+K6_THREADS = 32     # threads of a K6 block
+K6_MAX = 128        # most threads of a K6 block
 
 
 def msm_host(scalars: Sequence[int], points, packed=None) -> CH.G1Affine:
@@ -173,33 +177,134 @@ def _words_to_points(words: torch.Tensor) -> PD.PointArray:
     return (limbs[:NLIMB], limbs[NLIMB:], Z)
 
 
+def _lowbit(x: torch.Tensor) -> torch.Tensor:
+    return x & -x
+
+
 def bucket_sums_plain(words: torch.Tensor, order: torch.Tensor,
-                      starts: torch.Tensor) -> PD.PointArray:
+                      starts: torch.Tensor, chunk: int = K5_CHUNK
+                      ) -> PD.PointArray:
     """Plain version of K5: B[w, b] = the sum of the points in bucket b of
-    window w (identity for b = 0), as a Jacobian batch over (nw, 2^c).
-    Step k adds the k-th point of every segment longer than k, so each
-    bucket adds its points in the kernel's order; identity points are
-    skipped, as the kernel skips them."""
+    window w (identity for b = 0 and for empty buckets), as a Jacobian
+    batch over (nw, 2^c).  It takes K5's three steps in K5's order
+    (csrc/msm.cu), over every chunk of `chunk` sorted positions at once:
+
+    chunks: step i adds the i-th point of every chunk of the live range
+      [starts[w, 1], n) into its lane's sum, after closing the lane's piece
+      where the digit changes (a bucket inside the chunk goes to the
+      output, the chunk's first and last pieces of buckets that cross its
+      edges to head and tail); identity points are skipped;
+    tree: level l adds head[i + 2^l] into head[i] for i a multiple of
+      2^(l+1) when chunks i and i + 2^l start in the same bucket;
+    finish: a bucket spanning chunks c0 < c1 is tail[c0] (head[c0] when it
+      begins at c0's start) plus head[x] for x = c0 + 1, x += lowbit(x),
+      while x <= c1.
+    So it takes at most chunk + 1 + 2 log2(chunks) eager steps, whatever
+    the digits are.  chunk is the kernel's K5_CHUNK; tests pass a smaller
+    one to put chunk edges inside small layouts."""
     points = _words_to_points(words)
+    live = ~PD.is_identity(points)
     nw, n = order.shape
     m = starts.shape[1] - 1
-    starts = starts.long()
-    counts = (starts[:, 1:] - starts[:, :-1])
-    counts[:, 0] = 0                                   # digit 0: no bucket
-    counts = counts.reshape(-1)
-    first = (starts[:, :-1] + n * torch.arange(
-        nw, device=order.device)[:, None]).reshape(-1)
-    flat = order.reshape(-1).long()
-    live = ~PD.is_identity(points)
-    acc = PD.identity_like((nw * m,), order.device)
-    for k in range(int(counts.max()) if counts.numel() else 0):
-        lanes = torch.nonzero(counts > k).squeeze(1)
-        idx = flat[first[lanes] + k]
-        cur = tuple(a[:, lanes] for a in acc)
-        q = tuple(a[:, idx] for a in points)
-        new = PD.select_point(live[idx], PD.point_add(cur, q), cur)
-        acc = tuple(a.index_copy(1, lanes, b) for a, b in zip(acc, new))
-    return tuple(a.reshape(NLIMB, nw, m) for a in acc)
+    dev = order.device
+    st = starts.long()
+    C = -(-n // chunk)
+    out = PD.identity_like((nw * m,), dev)
+    if C == 0:
+        return tuple(a.reshape(NLIMB, nw, m) for a in out)
+    head = PD.identity_like((nw * C,), dev)
+    tail = PD.identity_like((nw * C,), dev)
+    rows = torch.arange(nw, device=dev)[:, None]
+    s1 = st[:, 1:2]                                             # (nw, 1)
+    # the bucket of each sorted position: the largest b with st[b] <= k
+    bucket_at = torch.searchsorted(
+        st.contiguous(), torch.arange(n, device=dev).expand(nw, n).contiguous(),
+        right=True) - 1
+    flat_order = order.long().reshape(-1)
+
+    def put(dst, idx, val, mask):
+        sel = torch.nonzero(mask).squeeze(1)
+        return tuple(d.index_copy(1, idx[sel], v[:, sel])
+                     for d, v in zip(dst, val))
+
+    # ---- chunks: one lane a chunk
+    k0 = s1 + chunk * torch.arange(C, device=dev)[None, :]     # (nw, C)
+    valid = (k0 < n).reshape(-1)
+    k0 = k0.clamp(max=n - 1).reshape(-1)
+    k1 = torch.minimum(k0 + chunk, torch.full_like(k0, n))
+    win = rows.expand(nw, C).reshape(-1)
+    cur = bucket_at[win, k0]
+    key = cur.clone()
+    first = torch.ones_like(valid)
+    begun = st[win, cur] >= k0
+    end = st[win, cur + 1]
+    done = ~valid
+    lane = torch.arange(nw * C, device=dev)
+    acc = PD.identity_like((nw * C,), dev)
+    for i in range(chunk + 1):
+        k = k0 + i
+        close = ~done & ((k == end) | (k == k1))
+        whole = close & begun & (end <= k1)
+        out = put(out, win * m + cur, acc, whole)
+        head = put(head, lane, acc, close & ~whole & first)
+        tail = put(tail, lane, acc, close & ~whole & ~first)
+        done = done | (close & (k == k1))
+        step = close & ~done
+        first = first & ~step
+        begun = begun | step
+        cur = torch.where(step, bucket_at[win, k.clamp(max=n - 1)], cur)
+        end = st[win, cur + 1]
+        acc = PD.select_point(step, PD.identity_like((nw * C,), dev), acc)
+        idx = flat_order[win * n + k.clamp(max=n - 1)]
+        adding = torch.nonzero(~done & live[idx]).squeeze(1)
+        if adding.numel():
+            new = PD.point_add(tuple(a[:, adding] for a in acc),
+                               tuple(a[:, idx[adding]] for a in points))
+            acc = tuple(a.index_copy(1, adding, b) for a, b in zip(acc, new))
+
+    # ---- tree over each window's chunks
+    n_live = (n - s1 + chunk - 1) // chunk                      # (nw, 1)
+    key = key.reshape(nw, C)
+    lev = 0
+    while (1 << lev) < C:
+        i = torch.arange(0, C, 2 << lev, device=dev)[None, :]
+        j = i + (1 << lev)
+        jc = j.clamp(max=C - 1)
+        pair = (j < n_live) & (key.gather(1, i.expand(nw, -1)) ==
+                               key.gather(1, jc.expand(nw, -1)))
+        w_, t_ = torch.nonzero(pair, as_tuple=True)
+        if w_.numel():
+            a_ = w_ * C + i[0, t_]
+            b_ = w_ * C + j[0, t_]
+            new = PD.point_add(tuple(h[:, a_] for h in head),
+                               tuple(h[:, b_] for h in head))
+            head = tuple(h.index_copy(1, a_, v) for h, v in zip(head, new))
+        lev += 1
+
+    # ---- finish: buckets that span chunks
+    b_all = torch.arange(m, device=dev)[None, :]
+    s, e = st[:, :-1], st[:, 1:]
+    c0 = (s - s1) // chunk
+    c1 = (e - 1 - s1) // chunk
+    w_, b_ = torch.nonzero((b_all >= 1) & (e > s) & (c0 < c1), as_tuple=True)
+    if w_.numel():
+        c0, c1 = c0[w_, b_], c1[w_, b_]
+        begins = key[w_, c0] == b_
+        at = w_ * C + c0
+        acc = PD.select_point(begins, tuple(h[:, at] for h in head),
+                              tuple(t[:, at] for t in tail))
+        x = torch.where(begins, torch.where(c0 == 0, C, c0 + _lowbit(c0)),
+                        c0 + 1)
+        while True:
+            act = torch.nonzero(x <= c1).squeeze(1)
+            if not act.numel():
+                break
+            new = PD.point_add(tuple(a[:, act] for a in acc),
+                               tuple(h[:, w_[act] * C + x[act]] for h in head))
+            acc = tuple(a.index_copy(1, act, v) for a, v in zip(acc, new))
+            x = x.index_put((act,), x[act] + _lowbit(x[act]))
+        out = tuple(o.index_copy(1, w_ * m + b_, v) for o, v in zip(out, acc))
+    return tuple(a.reshape(NLIMB, nw, m) for a in out)
 
 
 def msm_bucket_sums(words: torch.Tensor, order: torch.Tensor,
@@ -215,7 +320,7 @@ def msm_bucket_sums(words: torch.Tensor, order: torch.Tensor,
     nw, n = order.shape
     m = starts.shape[1] - 1
     if order.dtype != torch.int32 or starts.dtype != torch.int32 or \
-            starts.shape[0] != nw or m < 1 or n >= 1 << 31:
+            starts.shape[0] != nw or m < 2 or n >= 1 << 31:
         raise ValueError(f"K5: order (nw, n) and starts (nw, m + 1) int32, "
                          f"got {tuple(order.shape)} {order.dtype}, "
                          f"{tuple(starts.shape)} {starts.dtype}")
@@ -225,29 +330,38 @@ def msm_bucket_sums(words: torch.Tensor, order: torch.Tensor,
                          f"{order.device}, got {tuple(words.shape)} "
                          f"{words.dtype} on {words.device}")
     words, order, starts = (t.contiguous() for t in (words, order, starts))
-    out = torch.empty((3, NLIMB, nw, m), dtype=LIMB, device=order.device)
+    dev = order.device
+    C = -(-n // K5_CHUNK)
+    out = torch.empty((3, NLIMB, nw, m), dtype=LIMB, device=dev)
+    head = torch.empty((nw, C, 24), dtype=LIMB, device=dev)
+    tail = torch.empty((nw, C, 24), dtype=LIMB, device=dev)
+    key = torch.empty((nw, C), dtype=torch.int32, device=dev)
     p8, n0 = K.field_words(FQ)
     lib = K.get_lib()
-    CF.launches["msm_bucket_sums"] += 1
+    CF.launches["msm_bucket_sums"] += 1     # one call: 2 + log2(C) kernels
     K.check(lib.k5_msm_bucket_sums(
         words.data_ptr(), order.data_ptr(), starts.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), nw, n, m,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        head.data_ptr(), tail.data_ptr(), key.data_ptr(), nw, n, m,
         p8, n0, K.one_words(FQ), K.stream_ptr(order)), "k5_msm_bucket_sums")
     return (out[0], out[1], out[2])
 
 
 def k6_shape(m: int):
-    """(L, T, P) of K6 for 2^c = m buckets a window: L buckets a thread, T
-    threads a block, P blocks a window (all powers of two)."""
+    """(L, T, P) of K6 for 2^c = m buckets a window, csrc/msm.cu's
+    k6_shape: L = K6_RUN buckets a thread's run and T = K6_THREADS threads
+    a block, fewer for a small window, and T larger where P = m / (L T)
+    blocks a window would exceed K6_MAX; so c is at most 18."""
     if m < 1 or m & (m - 1):
         raise ValueError(f"K6: the bucket count {m} is not a power of two")
     L = min(K6_RUN, m)
     T = min(K6_THREADS, m // L)
-    P = m // (L * T)
-    if P > K6_THREADS:
-        raise ValueError(f"K6 takes at most {K6_RUN * K6_THREADS ** 2} "
-                         f"buckets a window, got {m}")
-    return L, T, P
+    if m // (L * T) > K6_MAX:
+        T = m // (L * K6_MAX)
+    if T > K6_MAX:
+        raise ValueError(f"K6: {m} buckets a window is beyond "
+                         f"{K6_RUN * K6_MAX ** 2} (window bits above 18)")
+    return L, T, m // (L * T)
 
 
 def _dbl_n(p: PD.PointArray, k: int) -> PD.PointArray:
@@ -261,42 +375,41 @@ def _halves(p: PD.PointArray):
     return tuple(a[..., 0::2] for a in p), tuple(a[..., 1::2] for a in p)
 
 
+def _k6_tree(D: PD.PointArray, V: PD.PointArray):
+    """K6's tree over the last axis: node i of a level combines entries 2i
+    and 2i + 1 as V = (V_l + V_r) + D_r, D = 2 (D_l + D_r); returns the
+    root's (D, V) with the axis dropped."""
+    while D[0].shape[-1] > 1:
+        (DL, DR), (VL, VR) = _halves(D), _halves(V)
+        V = PD.point_add(PD.point_add(VL, VR), DR)
+        D = PD.point_double(PD.point_add(DL, DR))
+    return tuple(tuple(a[..., 0] for a in x) for x in (D, V))
+
+
 def window_reduce_plain(buckets: PD.PointArray) -> PD.PointArray:
     """Plain version of K6: per window sum_{b >= 1} b * B_b of a Jacobian
     batch over (nw, m), as a batch over (nw,).  It takes K6's steps in
-    K6's order (k6_shape): bucket b = p*T*L + j*T + t goes to thread t of
-    block p; the thread's running sums give S = sum_j B and, after log2 T
-    doublings, W = T * sum_j j*B; a tree over the threads (W = W_l + W_r +
-    2^l S_r) and one over the blocks (V = V_l + V_r + 2^l S_r) give the
-    window's W + T*L*V."""
+    K6's order (k6_shape): thread t of block p sums buckets p*T*L + j*T +
+    t (j < L) by running sums into S and sum_j j * B_j; its leaf is D = S,
+    V = T * sum_j j * B_j (log2 T doublings); the tree over the block's T
+    threads (_k6_tree) gives D = T * S_p and V_p; then D = T * L * S_p
+    (log2 L doublings) and the tree over the window's P blocks leaves the
+    window's sum in the root's V."""
     nw, m = buckets[0].shape[1:]
     L, T, P = k6_shape(m)
     dev = buckets[0].device
     B = [a.reshape(NLIMB, nw, P, L, T) for a in buckets]
-    lanes = (nw, P, T)
 
-    def column(j):
-        return tuple(a[:, :, :, j, :] for a in B)
+    def row(j):
+        return tuple(a[..., j, :] for a in B)
 
-    run = acc = PD.identity_like(lanes, dev)
+    run_ = acc = PD.identity_like((nw, P, T), dev)
     for j in range(L - 1, 0, -1):
-        run = PD.point_add(run, column(j))
-        acc = PD.point_add(acc, run)
-    S = PD.point_add(run, column(0))
-    W = _dbl_n(acc, T.bit_length() - 1)
-    for lev in range(T.bit_length() - 1):             # threads of a block
-        (SL, SR), (WL, WR) = _halves(S), _halves(W)
-        S = PD.point_add(SL, SR)
-        W = PD.point_add(PD.point_add(WL, WR), _dbl_n(SR, lev))
-    S, W = (tuple(a[..., 0] for a in x) for x in (S, W))      # (nw, P)
-    V = PD.identity_like((nw, P), dev)
-    for lev in range(P.bit_length() - 1):             # blocks of a window
-        (SL, SR), (VL, VR), (WL, WR) = _halves(S), _halves(V), _halves(W)
-        S = PD.point_add(SL, SR)
-        V = PD.point_add(PD.point_add(VL, VR), _dbl_n(SR, lev))
-        W = PD.point_add(WL, WR)
-    V, W = (tuple(a[..., 0] for a in x) for x in (V, W))
-    return PD.point_add(W, _dbl_n(V, (T * L).bit_length() - 1))
+        run_ = PD.point_add(run_, row(j))
+        acc = PD.point_add(acc, run_)
+    run_ = PD.point_add(run_, row(0))
+    D, V = _k6_tree(run_, _dbl_n(acc, T.bit_length() - 1))     # (nw, P)
+    return _k6_tree(_dbl_n(D, L.bit_length() - 1), V)[1]
 
 
 def msm_window_reduce(buckets: PD.PointArray) -> PD.PointArray:
@@ -312,7 +425,7 @@ def msm_window_reduce(buckets: PD.PointArray) -> PD.PointArray:
             for a in buckets):
         raise ValueError("K6: buckets are three (16, nw, m) int32 tensors")
     nw, m = X.shape[1:]
-    L, T, P = k6_shape(m)
+    P = k6_shape(m)[2]
     bx, by, bz = (a.contiguous() for a in buckets)
     part = torch.empty((nw, P, 2, 24), dtype=LIMB, device=X.device)
     out = torch.empty((3, NLIMB, nw), dtype=LIMB, device=X.device)
@@ -321,9 +434,9 @@ def msm_window_reduce(buckets: PD.PointArray) -> PD.PointArray:
     CF.launches["msm_window_reduce"] += 1     # one call: two CUDA kernels
     K.check(lib.k6_msm_window_reduce(
         bx.data_ptr(), by.data_ptr(), bz.data_ptr(), part.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), nw, m, L,
-        T.bit_length() - 1, P.bit_length() - 1, (T * L).bit_length() - 1,
-        p8, n0, K.one_words(FQ), K.stream_ptr(X)), "k6_msm_window_reduce")
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), nw, m, p8,
+        n0, K.one_words(FQ), K.stream_ptr(X)),
+        "k6_msm_window_reduce")
     return (out[0], out[1], out[2])
 
 
@@ -422,10 +535,11 @@ def _packed_basis_disk(points):
 
 
 def msm_multi(jobs) -> list:
-    """Many independent MSMs in ONE native call (g1_msm_multi, OpenMP across
-    jobs) — the prover's per-phase commitment batches.  jobs: list of
-    (packed_basis, indices_or_None, scalars, fallback_points); falls back to
-    the per-job host path when native is unavailable.  Returns G1Affine (or
+    """Many independent MSMs in ONE native call (g1_msm_unified, OpenMP
+    across jobs) — the prover's per-phase commitment batches.  jobs: list
+    of (packed_basis, indices_or_None, scalars, fallback_points); falls back
+    to the per-job host path when native is unavailable, raises MemoryError
+    when the native side could not allocate a job.  Returns G1Affine (or
     None for empty jobs) per job."""
     out: list = [None] * len(jobs)
     native = [(j, job) for j, job in enumerate(jobs)
@@ -434,11 +548,7 @@ def msm_multi(jobs) -> list:
             if len(job[2]) > 0 and job[0] is None]
     if native:
         from ..native_loader import native_msm_multi
-        reduced = [(packed, indices,
-                    scalars if isinstance(scalars, np.ndarray)
-                    else [s % H.FR_MOD for s in scalars])
-                   for _, (packed, indices, scalars, _pts) in native]
-        res = native_msm_multi(reduced)
+        res = native_msm_multi([job[:3] for _, job in native])
         if res is not None:
             for (j, _), jac in zip(native, res):
                 out[j] = CH.jac_to_affine(jac)
@@ -459,13 +569,14 @@ def msm_combined(jobs, gjobs) -> list:
     """Plain/indexed jobs + grouped jobs in ONE native OpenMP region
     (g1_msm_unified), so the grouped b0/p batch fills the tail-idle cores
     of the indexed batch instead of running strictly after it.  Returns
-    results in jobs + gjobs order; per-job allocation failures (and an
-    absent/old native lib) fall back to the split paths."""
+    results in jobs + gjobs order.  A job the native side could not
+    allocate raises MemoryError; an absent native lib (or an unpacked
+    basis) takes the split paths."""
     uni = [("p", p, i, s) for (p, i, s, _pts) in jobs] + \
           [("g", p, r, st, sc) for (p, r, st, sc) in gjobs]
-    from ..native_loader import native_msm_unified
-    res = native_msm_unified(uni)
-    if res is not None and all(r is not None for r in res):
+    from ..native_loader import raise_on_failed_jobs, native_msm_unified
+    res = raise_on_failed_jobs(native_msm_unified(uni), "msm_combined")
+    if res is not None:
         return [CH.jac_to_affine(jac) for jac in res]
     out_p = msm_multi(jobs)
     out_g = msm_grouped_multi(gjobs) if gjobs else []

@@ -7,7 +7,9 @@ several window sizes and edge cases; the digits against the JAX package's;
 K5's and K6's own index arithmetic mirrored in numpy; and the slice,
 ParamsKZG.commit through the device path, against the JAX package's
 commit."""
+import os
 import random
+import re
 
 import numpy as np
 import pytest
@@ -100,8 +102,8 @@ def test_affine_words_round_trip():
 def test_window_bits_rule():
     """Below 2^20 points (HOST_THRESHOLD, where msm() starts to send MSMs
     to the card) the reference's rule; from there the card's measured
-    choice, which is not the reference's 14 (its top window puts every
-    point in 4 buckets)."""
+    choice, the window size with the least K5 + K6 time at 2^20 points,
+    which is not the reference's 14."""
     assert M.HOST_THRESHOLD == 1 << 20
     for n in (1, 64, 5000, 1 << 16, M.HOST_THRESHOLD - 1):
         assert M.pick_window_bits(n) == RM.pick_window_bits_v2(n)
@@ -110,66 +112,158 @@ def test_window_bits_rule():
     assert RM.pick_window_bits_v2(M.HOST_THRESHOLD) == 14
     with pytest.raises(ValueError, match="power of two"):
         M.k6_shape(48)
+    assert M.k6_shape(1 << 18) == (16, 128, 128)
+    with pytest.raises(ValueError, match="above 18"):
+        M.k6_shape(1 << 19)
 
 
-@pytest.mark.parametrize("c", [4, 8, 14, 16])
-def test_k5_walk_mirror(c):
-    """K5's indexing, thread by thread, in numpy: thread e is bucket
-    b = e % m of window w = e // m and walks order[w, starts[w, b] :
-    starts[w, b + 1]]; the walk must visit exactly the points whose digit
-    is b, in index order, and bucket 0 nothing."""
-    rng = np.random.default_rng(c)
-    n, m = 300, 1 << c
-    sc = [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(n)]
-    sc[:40] = [sc[40]] * 40                          # a long segment
-    digits = M._scalars_to_digits(NL.fr_buf(sc), c, "cpu")
-    order, starts = M.bucket_layout(digits, c)
-    d, o, s = digits.numpy(), order.numpy().ravel(), starts.numpy().ravel()
+def test_kernel_constants_match_the_source():
+    """ops/msm's K5_CHUNK, K6_RUN, K6_THREADS and K6_MAX size the scratch
+    and drive the plain versions; they must be csrc/msm.cu's, and the two
+    k6_shape rules the same."""
+    src = open(os.path.join(os.path.dirname(M.__file__), "..", "csrc",
+                            "msm.cu")).read()
+    for name in ("K5_CHUNK", "K6_RUN", "K6_THREADS", "K6_MAX"):
+        found = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert found and int(found.group(1)) == getattr(M, name), name
+    assert "if (m / (L * T) > K6_MAX) T = m / (L * K6_MAX);" in src
+
+
+def _k5_mirror(d, o, s, n, m, chunk, val):
+    """K5's three steps (csrc/msm.cu) thread by thread, with integers for
+    points (0 the identity, + the addition): returns the (nw, m) bucket
+    sums and asserts that every output slot is written exactly once and
+    that every head or tail slot read was written."""
     nw = d.shape[0]
-    assert starts.shape == (nw, m + 1) and order.dtype == starts.dtype
-    for e in range(nw * m):
-        w, b = e // m, e % m
-        if b == 0:
-            continue
-        seg = s[w * (m + 1) + b], s[w * (m + 1) + b + 1]
-        walked = [int(o[w * n + k]) for k in range(*seg)]
-        assert walked == np.flatnonzero(d[w] == b).tolist()
+    C = -(-n // chunk)
+    out = np.full((nw, m), None, dtype=object)
+    head = np.full((nw, C), None, dtype=object)
+    tail = np.full((nw, C), None, dtype=object)
+    key = np.zeros((nw, C), dtype=np.int64)
+
+    def store(w, b, v):
+        assert out[w, b] is None
+        out[w, b] = v
+
+    for w in range(nw):                   # chunks: thread j of window w
+        st = s[w * (m + 1):(w + 1) * (m + 1)]
+        for j in range(C):
+            k0 = int(st[1]) + j * chunk
+            if k0 >= n:
+                continue
+            k1 = min(k0 + chunk, n)
+            lo, hi = 1, m - 1             # bucket_of: binary search
+            while lo < hi:
+                mid = (lo + hi + 1) >> 1
+                lo, hi = (mid, hi) if st[mid] <= k0 else (lo, mid - 1)
+            b = lo
+            key[w, j] = b
+            first, begun, end, acc = True, st[b] >= k0, int(st[b + 1]), 0
+            k = k0
+            while True:
+                if k == end or k == k1:
+                    if begun and end <= k1:
+                        store(w, b, acc)
+                    else:
+                        (head if first else tail)[w, j] = acc
+                    if k == k1:
+                        break
+                    first, begun, acc = False, True, 0
+                    b += 1
+                    while st[b + 1] <= k:
+                        b += 1
+                    end = int(st[b + 1])
+                assert d[w, o[w * n + k]] == b
+                acc += val[o[w * n + k]]
+                k += 1
+        live = -(-(n - int(st[1])) // chunk)
+        lev = 0                           # tree: one launch a level
+        while (1 << lev) < C:
+            for i in range(0, C, 2 << lev):
+                jj = i + (1 << lev)
+                if jj < live and key[w, i] == key[w, jj]:
+                    head[w, i] = head[w, i] + head[w, jj]
+            lev += 1
+        for b in range(m):                # finish: one thread a bucket
+            if b == 0 or st[b] == st[b + 1]:
+                store(w, b, 0)
+                continue
+            c0 = (int(st[b]) - int(st[1])) // chunk
+            c1 = (int(st[b + 1]) - 1 - int(st[1])) // chunk
+            if c0 == c1:
+                assert out[w, b] is not None
+                continue
+            if key[w, c0] == b:
+                acc, x = head[w, c0], (C if c0 == 0 else c0 + (c0 & -c0))
+            else:
+                acc, x = tail[w, c0], c0 + 1
+            while x <= c1:
+                acc = acc + head[w, x]
+                x += x & -x
+            assert acc is not None
+            store(w, b, acc)
+    return out
 
 
-@pytest.mark.parametrize("m", [1, 16, 256, 1 << 14, 1 << 16])
+@pytest.mark.parametrize("c, chunk", [(4, 2), (8, 4), (8, 64), (14, 16),
+                                      (16, 32)])
+def test_k5_chunks_mirror(c, chunk):
+    """K5's indexing and combining steps in numpy (_k5_mirror), on uniform
+    scalars with a run of 40 equal ones and on a 0/1 column: every bucket
+    sum must be the sum of the points whose digit is b, each point added
+    once, and bucket 0 the identity."""
+    rng = np.random.default_rng(c * 100 + chunk)
+    n, m = 300, 1 << c
+    val = rng.integers(1, 1 << 40, size=n).astype(object)
+    for sc in ([int.from_bytes(rng.bytes(32), "little") % FR_MOD
+                for _ in range(n)], [int(v) for v in rng.integers(0, 2, n)]):
+        sc[:40] = [sc[40]] * 40                      # a long segment
+        digits = M._scalars_to_digits(NL.fr_buf(sc), c, "cpu")
+        order, starts = M.bucket_layout(digits, c)
+        d, o, s = digits.numpy(), order.numpy().ravel(), starts.numpy().ravel()
+        assert starts.shape == (d.shape[0], m + 1) and order.dtype == starts.dtype
+        out = _k5_mirror(d, o, s, n, m, chunk, val)
+        for w in range(d.shape[0]):
+            want = np.zeros(m, dtype=object)
+            np.add.at(want, d[w], val)
+            want[0] = 0
+            assert out[w].tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("m", [1, 16, 256, 1 << 14, 1 << 16, 1 << 17])
 def test_k6_tree_mirror(m):
     """K6's indexing and combining steps in numpy, with integers standing
     for points (add is +, doubling is *2): per window, thread t of block p
-    sums buckets p*T*L + j*T + t; the block tree and the window tree must
-    give sum_b b * B_b."""
+    sums buckets p*T*L + j*T + t by running sums (S and sum_j j * B); its
+    leaf is (D, V) = (S, T * sum_j j * B); the block tree and, after D is
+    scaled by L, the window tree (V = V_l + V_r + D_r, D = 2 (D_l + D_r))
+    must give sum_b b * B_b.  At 2^17 buckets k6_shape widens the block
+    (T = 64) to keep P at K6_MAX."""
     L, T, P = M.k6_shape(m)
-    assert L * T * P == m and T <= M.K6_THREADS and P <= M.K6_THREADS
+    assert L * T * P == m and max(T, P) <= M.K6_MAX
     rng = np.random.default_rng(m)
     B = rng.integers(0, 1 << 20, size=m).astype(object)
-    S, W = [], []
-    for p in range(P):                    # first launch, block p
-        sS, sW = [], []
+
+    def tree(D, V):
+        while len(D) > 1:
+            D, V = ([2 * (D[2 * i] + D[2 * i + 1]) for i in range(len(D) // 2)],
+                    [V[2 * i] + V[2 * i + 1] + D[2 * i + 1]
+                     for i in range(len(D) // 2)])
+        return D[0], V[0]
+
+    blocks = []
+    for p in range(P):                    # runs kernel, block p
+        D, V = [], []
         for t in range(T):
-            base = p * T * L + t
-            run = acc = 0
+            run_ = acc = 0
             for j in range(L - 1, 0, -1):
-                run += B[base + j * T]
-                acc += run
-            sS.append(run + B[base])
-            sW.append(acc * T)
-        for lev in range(T.bit_length() - 1):
-            for t in range(0, T, 2 << lev):
-                r = t + (1 << lev)
-                sS[t], sW[t] = sS[t] + sS[r], sW[t] + sW[r] + (sS[r] << lev)
-        S.append(sS[0])
-        W.append(sW[0])
-    V = [0] * P                           # second launch
-    for lev in range(P.bit_length() - 1):
-        for t in range(0, P, 2 << lev):
-            r = t + (1 << lev)
-            S[t], V[t], W[t] = (S[t] + S[r], V[t] + V[r] + (S[r] << lev),
-                                W[t] + W[r])
-    assert W[0] + V[0] * T * L == sum(b * B[b] for b in range(m))
+                run_ += B[p * T * L + j * T + t]
+                acc += run_
+            D.append(run_ + B[p * T * L + t])
+            V.append(acc * T)
+        blocks.append(tree(D, V))
+    _, V = tree([D * L for D, _ in blocks], [V for _, V in blocks])
+    assert V == sum(b * B[b] for b in range(m))
 
 
 def test_plain_kernels_match_jax_window_sums():
