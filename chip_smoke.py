@@ -66,7 +66,23 @@ catches an error and goes on):
    equality, ms, bound and share beside the longest bucket; the kernels
    line reports the uniform commit's); K5 / K6 device ms (CUDA events)
    with bound and share at window bits 14, 15 and 16; and K5 on every
-   skewed layout and at c = 14 within 1.5x of its uniform time.
+   skewed layout and at c = 14 within 1.5x of its uniform time;
+7. secp256k1 on the card (K1w, the wide-modulus instance of K1): at 2^20
+   elements of SecpFp and of SecpFq, operands with edge values first
+   (p - 1, R mod p, 2^256 - 1 as a, pairs whose REDC result t reaches
+   2^256), against its plain version bit for bit, with ms, bound and share;
+   then to_mont -> pow_const -> inv -> from_mont on 4096 elements of each
+   field on the card, equal to Python's integers, K1w launched by it;
+8. the generic-limb SHA-2 circuit (models/sha/circuit.py) at MINI_LIMBS,
+   k=7: MockProver satisfied and a wrong digest rejected; the proof with h
+   on the card equals the port's host-path proof and verifies.
+
+Phases 3-5 prove with the h inputs staged (plonk/device_eval.StagedStacks:
+the advice, instance and CQ f stacks packed into pinned memory and copied
+on a side stream while the CQ and permutation phases run); each prove
+prints its h_stage_advice, h_stage_f, h_pack_inputs and h_device seconds,
+and phase 4 also proves once with the staging function replaced by a
+no-op: the same bytes, and the pack it then pays, stack by stack.
 
 The last lines are the card's name and power limit, the kernels JSON object
 and the result object {"ok": true, "device": {...}}.
@@ -84,6 +100,7 @@ import random
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda:0"
@@ -120,7 +137,11 @@ KERNELS = {                      # name: (source, the TPU-side code it replaces)
                         "sha2cq_tpu/ops/msm.py:169"),
     "msm_window_reduce": ("sha2cq_tpu_torch/csrc/msm.cu",
                           "sha2cq_tpu/ops/msm.py:257"),
+    "mont_mul_wide": ("sha2cq_tpu_torch/csrc/mont_mul.cu",
+                      "sha2cq_tpu/fields/device.py:332"),
 }
+STAGING_MARKS = ("create_proof/h_stage_advice", "create_proof/h_stage_f",
+                 "h_pack_inputs", "h_device")
 
 
 def fail(msg: str) -> None:
@@ -247,6 +268,27 @@ def rand_limbs(gen, shape, device, p):
                       dtype=torch.int32)
     x[15] %= (p >> 240)
     return x.to(device)
+
+
+def by_stack(timings, phase) -> dict:
+    """Seconds of each stack's sub-phase of `phase` (profiler paths
+    "phase/stack")."""
+    return {k.split("/")[1]: v for k, v in timings.items()
+            if k.startswith(phase + "/")}
+
+
+def staging_report(tag, timings) -> None:
+    """The staged h inputs of one prove, from the profiler: the marks the
+    staging threads start at, the h phase's pack (what was not staged,
+    plus the wait on the threads) and h_device; beside them each staging
+    thread's pack-and-copy per stack and the h phase's pack per stack."""
+    missing = [m for m in STAGING_MARKS if m not in timings]
+    if missing:
+        fail(f"{tag}: the prove recorded no {missing}")
+    say(f"{tag}_staging", **{m.split("/")[-1] + "_s": timings[m]
+                            for m in STAGING_MARKS},
+        staged_pack_s=by_stack(timings, "h_stage"),
+        h_pack_by_stack_s=by_stack(timings, "h_pack_inputs"))
 
 
 def compare_routes(C, pk, dev, routes, tag):
@@ -734,6 +776,7 @@ def main() -> None:
     say("prove_cold", seconds=round(cold_s, 3), launches=cold_launches,
         proof_bytes=len(proof))
     print(profiler.report("cold prove phases"), flush=True)
+    staging_report("k13_cold", profiler.timings())
     profiler.reset()
     CF.reset_launches()
     t0 = time.perf_counter()
@@ -742,6 +785,27 @@ def main() -> None:
     warm_launches = dict(CF.launches)
     say("prove_warm", seconds=round(warm_s, 3), launches=warm_launches)
     print(profiler.report("warm prove phases"), flush=True)
+    staging_report("k13_warm", profiler.timings())
+    profiler.reset()
+    # the same warm prove with the staging function replaced by a no-op:
+    # the same bytes, and the pack the h phase then pays for every stack
+    from sha2cq_tpu_torch.plonk import device_eval as DE
+    real_stage = DE.stage_stacks
+    DE.stage_stacks = lambda out, stacks, n, device: None
+    try:
+        t0 = time.perf_counter()
+        proof_u = C.prove(case, 2, device=dev)
+        unstaged_s = time.perf_counter() - t0
+    finally:
+        DE.stage_stacks = real_stage
+    timings = profiler.timings()
+    say("k13_unstaged", seconds=round(unstaged_s, 3),
+        identical_to_staged=proof_u == proof_w,
+        h_pack_inputs_s=timings["h_pack_inputs"],
+        h_device_s=timings["h_device"],
+        h_pack_by_stack_s=by_stack(timings, "h_pack_inputs"))
+    if proof_u != proof_w:
+        fail("the k=13 proof with staging differs from the one without")
     profiler.reset()
     profiler.disable()
     t0 = time.perf_counter()
@@ -781,6 +845,7 @@ def main() -> None:
         launches=big_launches, proof_bytes=len(proof),
         peak_device_bytes=torch.cuda.max_memory_allocated())
     print(profiler.report("k=18 prove phases"), flush=True)
+    staging_report("k18", profiler.timings())
     profiler.reset()
     profiler.disable()
     t0 = time.perf_counter()
@@ -1004,6 +1069,109 @@ def main() -> None:
         fail(f"K5 on a skewed layout takes over 1.5x its uniform time: "
              f"{ratios}")
     del params, packed, words, buf, coeffs, columns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: secp256k1 on the card, K1w ------------------------------
+    from sha2cq_tpu_torch.curves import secp256k1 as SECP
+    R = 1 << 256
+    n_wide = 1 << 20
+    for ctx in SECP.device_ctxs():
+        q = ctx.p
+        # a < 2^256 (all 16 limbs random), b < p; edge values first: every
+        # pair of (p - 1, 2^256 - 1, R mod p, 0, 1, 2^255) as a and
+        # (p - 1, R mod p, 0, 1, p // 2) as b
+        a = torch.randint(0, 1 << 16, (16, n_wide), generator=gen,
+                          dtype=torch.int32)
+        b = rand_limbs(gen, (n_wide,), "cpu", q)
+        pairs = [(x, y) for x in (q - 1, R - 1, R % q, 0, 1, 1 << 255)
+                 for y in (q - 1, R % q, 0, 1, q // 2)]
+        for j, (x, y) in enumerate(pairs):
+            a[:, j] = torch.tensor([(x >> (16 * i)) & 0xFFFF for i in range(16)])
+            b[:, j] = torch.tensor([(y >> (16 * i)) & 0xFFFF for i in range(16)])
+        # how many of the first 4096 pairs drive REDC's t past 2^256
+        head = [[sum(int(t[i, j]) << (16 * i) for i in range(16))
+                 for j in range(4096)] for t in (a, b)]
+        npinv = pow(q, -1, R)
+        over = sum(x * y + ((-x * y * npinv) % R) * q >= R * R
+                   for x, y in zip(*head))
+        a, b = a.to(dev), b.to(dev)
+        out = CF.mont_mul(a, b, ctx)
+        torch.cuda.synchronize()
+        ref = D.mont_mul_plain(a, b, ctx)
+        record("mont_mul_wide", out, ref,
+               cuda_time_ms(lambda: CF.mont_mul(a, b, ctx), 20),
+               cuda_time_ms(lambda: D.mont_mul_plain(a, b, ctx), 3),
+               3 * 64 * n_wide, n_wide * MONT_MADS, shape=[16, n_wide],
+               field=ctx.name, edge_pairs=len(pairs),
+               t_at_least_2_256_in_first_4096=over)
+        if over == 0:
+            fail(f"{ctx.name}: no operand pair drives t past 2^256")
+        del a, b, out, ref
+    # the secp main path: Montgomery conversion, a power and an inverse of
+    # 4096 elements of each field on the card
+    rng = random.Random(SEED)
+    CF.reset_launches()
+    t0 = time.perf_counter()
+    chain = {}
+    for ctx in SECP.device_ctxs():
+        q = ctx.p
+        vals = [0, 1, q - 1] + [rng.randrange(q) for _ in range(4093)]
+        x = D.to_mont(D.pack(vals, ctx, mont=False, device=dev), ctx)
+        y = D.from_mont(D.inv(D.pow_const(x, 0x10001, ctx), ctx), ctx)
+        got = D.unpack(y, ctx, mont=False)
+        chain[ctx.name] = got == [pow(pow(v, 0x10001, q), q - 2, q)
+                                  for v in vals]
+    wide_launches = dict(CF.launches)
+    say("secp_chain", elements=4096, equal_to_python=chain,
+        seconds=round(time.perf_counter() - t0, 3), launches=wide_launches)
+    if not all(chain.values()):
+        fail(f"the secp256k1 chain on the card differs from Python's: {chain}")
+    if wide_launches["mont_mul_wide"] <= 0 or wide_launches["mont_mul"] != 0:
+        fail("the secp256k1 chain did not run on K1w alone")
+    kernels["mont_mul_wide"]["launches"] = wide_launches["mont_mul_wide"]
+
+    # ---- phase 8: the generic-limb SHA-2 circuit at MINI_LIMBS, k=7 -------
+    from sha2cq_tpu_torch import plonk as PL
+    from sha2cq_tpu_torch.dev.mock_prover import MockProver
+    from sha2cq_tpu_torch.models.sha.circuit import Sha2CqCircuit
+    from sha2cq_tpu_torch.models.sha.setup import build_sha_setup
+    from sha2cq_tpu_torch.models.sha.tables import MINI_LIMBS
+    from sha2cq_tpu_torch.poly.kzg.params import ParamsKZG
+    t0 = time.perf_counter()
+    k_mini = 7
+    rng = random.Random(SEED)
+    s_mini = rng.randrange(p)
+    tables, configs, b0, _srs = build_sha_setup(MINI_LIMBS, 1 << k_mini,
+                                                s_mini, cache=False)
+    mini_cls = type("MiniShaCircuit", (Sha2CqCircuit,), {"LIMBS": MINI_LIMBS})
+    circuit = mini_cls([rng.randrange(1 << MINI_LIMBS.word_len)
+                        for _ in range(16)], tables)
+    digest = list(circuit.expected_digest())
+    satisfied = MockProver.run(k_mini, circuit, [digest]).verify() == []
+    wrong = list(digest)
+    wrong[0] ^= 1
+    rejected = MockProver.run(k_mini, circuit, [wrong]).verify() != []
+    params_mini = ParamsKZG.setup_from_toxic_waste(k_mini, s_mini)
+    vk = PL.keygen_vk(params_mini, circuit)
+    mini = types.SimpleNamespace(
+        params=params_mini, vk=vk,
+        pk=PL.keygen_pk(params_mini, configs, b0, vk, circuit),
+        circuits=[circuit], instances=[[digest]], k=k_mini)
+    proof_host = C.prove(mini, 11, h_device=False)
+    CF.reset_launches()
+    proof_card = C.prove(mini, 11, h_device=True, device=dev)
+    mini_launches = dict(CF.launches)
+    ok_mini = C.verify(mini, proof_card)
+    say("sha_mini", k=k_mini, mock_satisfied=satisfied,
+        wrong_digest_rejected=rejected, identical=proof_card == proof_host,
+        verified=ok_mini, route=get_h_fn(mini.pk, dev).route,
+        launches=mini_launches, seconds=round(time.perf_counter() - t0, 3))
+    if not (satisfied and rejected and ok_mini and proof_card == proof_host):
+        fail("the MINI_LIMBS SHA-2 circuit fails on the card")
+    for name in ("mont_mul", "h_vm_run", "ntt_radix2"):
+        if mini_launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the MINI SHA-2 prove")
 
     say("done", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)

@@ -10,10 +10,14 @@
 // Bit-exactness with the reference (16-bit-digit REDC, one conditional
 // subtract): for any a, b < 2^256, Montgomery reduction computes
 // t = (a*b + m*p) / R with the unique m < R such that a*b + m*p = 0 mod R,
-// whatever the digit size, so t is the reference's t; the low 256 bits are
-// then conditionally reduced by p exactly as the reference does (its
-// overflow limb is dropped for p < 2^255, i.e. Fr and Fq).  add and sub
-// follow the reference's carry/borrow rules word for word.
+// whatever the digit size, so t is the reference's t; t is then
+// conditionally reduced by p exactly as the reference does.  For p < 2^255
+// (Fr, Fq) t < 2^256 and the reference's overflow limb is 0; for a wide
+// modulus, p > 2^255 (secp256k1's Fp and Fq; FieldCtx.wide), t may reach
+// 2^256 and the template instance WIDE = true keeps that ninth word, as the
+// reference's `ctx.wide` branch keeps its overflow limb
+// (sha2cq_tpu/fields/device.py:376-382).  add and sub follow the
+// reference's carry/borrow rules word for word (they serve p < 2^255 only).
 #pragma once
 
 #include <cstdint>
@@ -47,14 +51,23 @@ __device__ __forceinline__ void store_limbs(int32_t* base, long stride,
   }
 }
 
-// r = (t >= p) ? t - p : t over 256 bits.
+// r = (t >= p) ? t - p : t for t = t8 * 2^256 + t[0..8).  Narrow (p <
+// 2^255): t8 is 0 and not read.  WIDE: t8 is 0 or 1, and t8 = 1 means
+// t >= 2^256 > p; t < 2p, so the 256-bit difference is all of t - p.
+template <bool WIDE = false>
 __device__ __forceinline__ void cond_sub_p(uint32_t r[8], const uint32_t t[8],
-                                           const Fp& f) {
+                                           const Fp& f, uint32_t t8 = 0) {
   uint32_t d[8];
   d[0] = sub_cc(t[0], f.p[0]);
 #pragma unroll
   for (int i = 1; i < 8; ++i) d[i] = subc_cc(t[i], f.p[i]);
-  const bool ge = subc(0, 0) == 0;        // no borrow out
+  bool ge;
+  if constexpr (WIDE) {
+    // t8 - borrow: 0xFFFFFFFF only for t8 = 0 with a borrow out (t < p)
+    ge = subc(t8, 0) != 0xFFFFFFFFu;
+  } else {
+    ge = subc(0, 0) == 0;                 // no borrow out
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) r[i] = ge ? d[i] : t[i];
 }
@@ -88,12 +101,25 @@ __device__ __forceinline__ void mac_chain(uint32_t acc[8], uint32_t* top,
 // makes them land at 2k + 1), and L is one pending word.  A round adds
 // a*b[i] and m*p (m = t * n0 mod 2^32), which clears word 0 of E, and then
 // divides by 2^32 by renaming alone: E' = O, L' = E[1], O' = E >> 64.
-// E and O stay below 2^258 (a round adds two products below 2^256 to a
-// value below 2^257), so a ninth word (e8, o8) holds their carries.
+// Bound on E and O, for any p < 2^256 (narrow or WIDE) and a, b < 2^256:
+// a mac_chain adds x * y with x = sum_k x_k 2^{64k} < 2^256 and y < 2^32,
+// so less than 2^256, and a round adds two chains to each of E and O, less
+// than 2^257.  They start as the halves of a * b[0], each below 2^256.
+// From round 1 on, a round starts with E < 2^258 and O < 2^195: it leaves
+// E < 2^259 and O < 2^258, so E' = O < 2^258 and O' = E >> 64 < 2^195.
+// Every value stays far below the 2^288 of nine words: e8 and o8 never
+// wrap.  Nothing here depends on p < 2^255; only t's final bound does.
 //
 // The chains on E and on O are independent, and each is 8 dependent
 // multiply-adds long (the old single chain ran through all 16 products of a
 // round), so a warp has multiply-adds to issue while a chain waits.
+//
+// The result is t = (a*b + m*p) / R < (R*b + R*p) / R = b + p, reduced by
+// one conditional subtraction: canonical for b < p.  Narrow (p < 2^255):
+// t < 2^256, so t's ninth word (e8 + the carry) is 0 and is not formed.
+// WIDE (2^255 < p < 2^256): t < 2^257 and its ninth word, 0 or 1, goes to
+// cond_sub_p<true>.
+template <bool WIDE = false>
 __device__ __forceinline__ void mont_mul(uint32_t r[8], const uint32_t a[8],
                                          const uint32_t b[8], const Fp& f) {
   uint32_t E[8], O[8], e8, o8, L;
@@ -135,12 +161,16 @@ __device__ __forceinline__ void mont_mul(uint32_t r[8], const uint32_t a[8],
     e8 = o8;
     o8 = 0;
   }
-  // t = E + L + 2^32 * O < 2p < 2^255: its ninth word (e8 + carry) is 0
+  // t = E + L + 2^32 * O, where O[7] = 0 after the last renaming
   uint32_t t[8];
   t[0] = add_cc(E[0], L);
 #pragma unroll
   for (int k = 1; k < 8; ++k) t[k] = addc_cc(E[k], O[k - 1]);
-  cond_sub_p(r, t, f);
+  if constexpr (WIDE) {
+    cond_sub_p<true>(r, t, f, addc(e8, O[7]));
+  } else {
+    cond_sub_p(r, t, f);
+  }
 }
 
 // r = (a + b) mod p for canonical a, b: subtract p on carry-out or s >= p.

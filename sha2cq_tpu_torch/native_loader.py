@@ -1,22 +1,31 @@
 """Loader for the native (C) group kernels in native/fieldops.c.
 
-Compiles the shared library on first use (gcc, -O3) into the repo's build
-dir and binds it via ctypes.  Every consumer falls back to the pure-Python
-Jacobian path when the toolchain or binary is unavailable, so the native
-layer is an accelerator, never a requirement.
+Compiles the shared library on first use (cc, -O3) into the port's own
+build directory, sha2cq_tpu_torch/_build/native/, and binds it via ctypes.
+Concurrent processes build it once: the first takes an exclusive lock on a
+file beside the library, compiles to a temporary name and moves the result
+into place; the others wait on the lock and load the finished file.  Every
+consumer falls back to the pure-Python Jacobian path when the toolchain or
+binary is unavailable (`build_error` then says why), so the native layer is
+an accelerator, never a requirement.
 
-The port's own copy of sha2cq_tpu/native_loader.py.
+The port's own copy of sha2cq_tpu/native_loader.py, with its own build
+directory and the locked, atomic build.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
+import warnings
 from typing import List, Optional
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_HERE, "native", "fieldops.c")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build",
+                         "native")
 
 
 def _lib_path() -> str:
@@ -25,36 +34,59 @@ def _lib_path() -> str:
     can never shadow a changed fieldops.c."""
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(_HERE, "native", "build", f"libfieldops-{digest}.so")
+    return os.path.join(BUILD_DIR, f"libfieldops-{digest}.so")
 
 
 _LIB = _lib_path()
 
 _lib = None
 _tried = False
+build_error: Optional[str] = None   # why this process has no library
 
 
 def _build() -> bool:
-    os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-    try:
-        subprocess.run(
-            ["cc", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC", _SRC, "-o", _LIB],
-            check=True, capture_output=True, timeout=120)
-        return True
-    except Exception:
-        return False
+    """Make _LIB exist, compiling it unless another process already did.
+    Under an exclusive flock on a lock file beside it, a process that finds
+    the library loads it as it is; otherwise it compiles to a temporary
+    name in the same directory and moves the file into place with
+    os.replace, so no process ever opens a half-written library.  False,
+    with `build_error` set, when the compiler is missing or fails."""
+    global build_error
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # released when the file closes
+        if os.path.exists(_LIB):
+            return True
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
+        try:
+            res = subprocess.run(
+                ["cc", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+                 _SRC, "-o", tmp], capture_output=True, text=True,
+                timeout=120)
+            if res.returncode != 0:
+                build_error = f"cc failed ({res.returncode}): {res.stderr[-2000:]}"
+                return False
+            os.replace(tmp, _LIB)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            build_error = f"cc could not run: {e!r}"
+            return False
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return True
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, build_error
     if _lib is not None:
         return _lib
     if _tried:
         return None
     _tried = True
-    if not os.path.exists(_LIB):
-        if not _build():
-            return None
+    if not os.path.exists(_LIB) and not _build():
+        warnings.warn(f"native/fieldops.c did not build; the pure-Python "
+                      f"path runs instead: {build_error}", RuntimeWarning)
+        return None
     try:
         lib = ctypes.CDLL(_LIB)
         lib.g1_add_jac.argtypes = [ctypes.POINTER(ctypes.c_uint64)] * 3
@@ -89,7 +121,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.fr_prefix_prod.argtypes = [U64P, U64P, U64P, ctypes.c_long]
         _lib = lib
         return lib
-    except OSError:
+    except OSError as e:
+        build_error = f"{_LIB} did not load: {e!r}"
+        warnings.warn(build_error, RuntimeWarning)
         return None
 
 

@@ -6,7 +6,9 @@ Three wrappers, each with its plain PyTorch version and a launch counter:
   `fields.device.mont_mul` the reference's h path calls): elementwise
   Montgomery product of (16, *batch) limb tensors, with the second operand
   either the same shape, a (16, 1) scalar, or a (16, 1, X) row broadcast
-  over the middle axis.
+  over the middle axis.  A wide context (p > 2^255: secp256k1's Fp and Fq)
+  launches K1w, the kernel's instance that keeps REDC's overflow word (the
+  reference's `ctx.wide` branch of fields.device.mont_mul).
 * K2 `planes_to_limbs_mul` replaces `pallas_field.planes_to_limbs_mul`: the
   digit-matmul NTT's fused epilogue, (32, M, X) int32 digit planes ->
   (16, M, X) canonical limbs multiplied by a twiddle tile, a periodic
@@ -36,8 +38,9 @@ K2_TILE, K2_MINOR, K2_MAJOR, K2_SCALAR = range(4)   # csrc/planes_to_limbs.cu's 
 # its kernel's C entry, once a call.  Two entries launch more than one
 # CUDA kernel a call: K4's (one k4_pass a pass, ops/ntt.k4_passes) and
 # K6's (k6_partials_kernel, then k6_combine_kernel).
-launches = {"mont_mul": 0, "planes_to_limbs_mul": 0, "h_vm_run": 0,
-            "ntt_radix2": 0, "msm_bucket_sums": 0, "msm_window_reduce": 0}
+launches = {"mont_mul": 0, "mont_mul_wide": 0, "planes_to_limbs_mul": 0,
+            "h_vm_run": 0, "ntt_radix2": 0, "msm_bucket_sums": 0,
+            "msm_window_reduce": 0}
 
 
 def reset_launches() -> None:
@@ -58,13 +61,10 @@ def as_limbs32(t: torch.Tensor) -> torch.Tensor:
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor, ctx=FR) -> torch.Tensor:
     """Montgomery product a*b*R^{-1} mod p of limb tensors (same contract
-    as the reference: a < 2^256, b < p gives a canonical result)."""
+    as the reference: a < 2^256, b < p gives a canonical result).  K1 for
+    p < 2^255, K1w for a wide context."""
     if not a.is_cuda and not b.is_cuda:
         return D.mont_mul_plain(a, b, ctx)
-    if ctx.wide:
-        raise NotImplementedError(
-            "K1 covers p < 2^255 (Fr, Fq); the wide-modulus variant for "
-            "secp256k1 is not ported (ROADMAP)")
     a, b = as_limbs32(a), as_limbs32(b)
     if a.shape[:1] != (NLIMB,) or b.shape[:1] != (NLIMB,):
         raise ValueError(f"limb tensors are (16, ...), got {tuple(a.shape)} "
@@ -91,10 +91,11 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, ctx=FR) -> torch.Tensor:
         return out
     p8, n0 = K.field_words(ctx)
     lib = K.get_lib()
-    launches["mont_mul"] += 1
-    K.check(lib.k1_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-                            b_stride, b_mod, p8, n0, K.stream_ptr(a)),
-            "k1_mont_mul")
+    name, entry = (("mont_mul_wide", lib.k1_mont_mul_wide) if ctx.wide
+                   else ("mont_mul", lib.k1_mont_mul))
+    launches[name] += 1
+    K.check(entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, b_stride,
+                  b_mod, p8, n0, K.stream_ptr(a)), name)
     return out
 
 

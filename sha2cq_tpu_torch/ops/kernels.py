@@ -122,6 +122,8 @@ def _bind(lib):
     lib.k_error_string.restype = ctypes.c_char_p
     lib.k1_mont_mul.argtypes = [vp, vp, vp, cl, cl, cl, vp, ctypes.c_uint32, vp]
     lib.k1_mont_mul.restype = ci
+    lib.k1_mont_mul_wide.argtypes = lib.k1_mont_mul.argtypes
+    lib.k1_mont_mul_wide.restype = ci
     lib.k2_planes_to_limbs_mul.argtypes = [vp, vp, vp, ci, ci, ci, cl, ci, ci,
                                            vp, ctypes.c_uint32,
                                            ctypes.c_uint64, vp]

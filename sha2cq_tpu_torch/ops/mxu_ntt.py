@@ -454,3 +454,22 @@ def mxu_ntt_batch_mapped(a: torch.Tensor, plan: NttPlan, res_omega, ctx=FR,
         f = _dft_axis1(at, plan, 0, ctx, max_m, res_omega, scale)
         out[:, lo:lo + cb] = f.transpose(1, 2).to(out.dtype)
     return out
+
+
+def mxu_ntt_batch(a: torch.Tensor, plan: NttPlan, res_omega, ctx=FR,
+                  max_m: int = MAX_MATMUL, chunk: int = 16,
+                  scale=None) -> torch.Tensor:
+    """The reference's mxu_ntt_batch (forward NTT over the LAST axis of a
+    (16, C, n) limb tensor, `chunk` columns at a time, scaled by `scale` at
+    the last level): mxu_ntt_batch_mapped, whose values the reference
+    states are the same."""
+    return mxu_ntt_batch_mapped(a, plan, res_omega, ctx, max_m, chunk, scale)
+
+
+def mxu_lagrange_to_coeff_batch(a: torch.Tensor, omega_inv: int, k: int,
+                                divisor_inv: int, ctx=FR) -> torch.Tensor:
+    """(16, C, n) Lagrange -> coefficient batch (iNTT with the 1/n scale
+    fused into the last level), as the reference's."""
+    plan, res_omega = plan_on(1 << k, omega_inv, a.device, ctx.name)
+    return mxu_ntt_batch_mapped(a, plan, res_omega, ctx,
+                                scale=_scalar(divisor_inv, ctx, a.device))

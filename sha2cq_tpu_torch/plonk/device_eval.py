@@ -38,6 +38,7 @@ chunk-jit fallback.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -275,37 +276,133 @@ def get_h_fn(pk, device="cuda", use_mxu: Optional[bool] = None,
     return fn
 
 
-def stack_columns(cols, n, device) -> torch.Tensor:
-    """Pack a list of columns (int lists or canonical (n, 4) u64 limb
-    buffers) into a (16, C, n) int16-storage limb tensor on `device`."""
-    if not cols:
-        return torch.zeros((NLIMB, 0, n), dtype=torch.int16, device=device)
+def pack_columns(cols, n) -> np.ndarray:
+    """A non-empty list of columns (int lists or canonical (n, 4) u64 limb
+    buffers) -> their (16, C, n) Montgomery limbs, uint32 on the host (one
+    native pack when every column is a buffer)."""
     if all(isinstance(c, np.ndarray) for c in cols):
         packed = D.np_pack_buf(np.concatenate(cols), FR)
     else:
         from ..poly.arith import as_coeff_list
         flat = [v for c in (as_coeff_list(c) for c in cols) for v in c]
         packed = D.np_pack(flat, FR)
+    return packed.reshape(NLIMB, len(cols), n)
+
+
+def stack_columns(cols, n, device) -> torch.Tensor:
+    """Pack a list of columns (int lists or canonical (n, 4) u64 limb
+    buffers) into a (16, C, n) int16-storage limb tensor on `device`."""
+    if not cols:
+        return torch.zeros((NLIMB, 0, n), dtype=torch.int16, device=device)
     return torch.from_numpy(np.ascontiguousarray(
-        packed.reshape(NLIMB, len(cols), n).astype(np.uint16)).view(np.int16)
-    ).to(device)
+        pack_columns(cols, n).astype(np.uint16)).view(np.int16)).to(device)
+
+
+def stage_stacks(out: Dict, stacks: Dict, n: int, device) -> None:
+    """Body of a staging thread: pack each column stack of `stacks` (key ->
+    columns) and start its copy to `device`, storing key -> (device tensor,
+    the copy's event, its host tensor) in `out`.  On a CUDA device the pack
+    goes into pinned host memory and the copy is non_blocking on a stream of
+    the thread's own (a copy from pageable memory would synchronise), so
+    nothing here waits for the card; on the CPU it is stack_columns, event
+    and host tensor None."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        for key, cols in stacks.items():
+            with profiler.phase(f"h_stage/{key[-1]}"):
+                out[key] = (stack_columns(cols, n, dev), None, None)
+        return
+    with torch.cuda.device(dev):
+        stream = torch.cuda.Stream(dev)     # the current stream is per thread
+        with torch.cuda.stream(stream):
+            for key, cols in stacks.items():
+                with profiler.phase(f"h_stage/{key[-1]}"):
+                    host = torch.empty((NLIMB, len(cols), n), dtype=torch.int16,
+                                       pin_memory=True)
+                    if cols:
+                        np.copyto(host.numpy().view(np.uint16),
+                                  pack_columns(cols, n), casting="unsafe")
+                    copied = torch.cuda.Event()
+                    t = host.to(dev, non_blocking=True)
+                    copied.record(stream)
+                out[key] = (t, copied, host)
+
+
+class StagedStacks:
+    """h input stacks packed and copied to the device on threads while the
+    prover's host phases run (the reference's h staging,
+    sha2cq_tpu/plonk/prover.py:283-367).  start() runs stage_stacks on a
+    thread of its own; take() joins every thread, re-raises the first
+    exception a thread met (no quiet repack), makes the caller's current
+    stream wait for each copy, and hands the tensors over.  Each tensor was
+    allocated on its thread's stream, so take() records the current stream
+    on it: its memory is not reused before the work queued there ends.  The
+    pinned host buffers go with the stage: the copies recorded their events
+    with PyTorch's pinned-memory allocator, which keeps a buffer until its
+    copy is done."""
+
+    def __init__(self, n: int, device):
+        self.n = n
+        self.device = torch.device(device)
+        self._out: Dict = {}
+        self._threads: List[threading.Thread] = []
+        self._errors: List[BaseException] = []
+
+    def start(self, stacks: Dict) -> None:
+        def run():
+            try:
+                stage_stacks(self._out, stacks, self.n, self.device)
+            except BaseException as e:      # re-raised by take()
+                self._errors.append(e)
+
+        th = threading.Thread(target=run, name="h-stage", daemon=True)
+        th.start()
+        self._threads.append(th)
+
+    def take(self) -> Dict:
+        """key -> staged device tensor, ready for the current stream."""
+        for th in self._threads:
+            th.join()
+        self._threads = []
+        if self._errors:
+            raise self._errors[0]
+        staged = {}
+        for key, (t, copied, _host) in self._out.items():
+            if copied is not None:
+                current = torch.cuda.current_stream(self.device)
+                current.wait_event(copied)
+                t.record_stream(current)
+            staged[key] = t
+        self._out = {}
+        return staged
 
 
 def prepare_h_inputs(pk, advice_cols, instance_values, lookups,
-                     static_lookups, permutation, device) -> Dict:
-    """One circuit's witness state -> the HFn input stacks on `device`
-    (one host pack and one host->device copy per stack)."""
+                     static_lookups, permutation, device,
+                     staged: Optional[Dict] = None) -> Dict:
+    """One circuit's witness state -> the HFn input stacks on `device`: the
+    stacks in `staged` (name -> tensor, from StagedStacks) as they are, each
+    other stack with one host pack and one host->device copy."""
     n = pk.vk.domain.n
+    staged = staged or {}
     z_cols = [s["lagrange"] for s in (permutation["sets"] if permutation else [])]
     lk_cols: List = []
     for lk in lookups:
         lk_cols.extend([lk["product_lagrange"], lk["permuted_input"],
                         lk["permuted_table"]])
-    return {
-        "advice": stack_columns(advice_cols, n, device),
-        "instance": stack_columns(instance_values, n, device),
-        "z": stack_columns(z_cols, n, device),
-        "lookups": stack_columns(lk_cols, n, device),
-        "static_b": stack_columns([sl["b"] for sl in static_lookups], n, device),
-        "static_f": stack_columns([sl["f"] for sl in static_lookups], n, device),
+    stacks = {
+        "advice": advice_cols,
+        "instance": instance_values,
+        "z": z_cols,
+        "lookups": lk_cols,
+        "static_b": [sl["b"] for sl in static_lookups],
+        "static_f": [sl["f"] for sl in static_lookups],
     }
+    out = {}
+    for name, cols in stacks.items():
+        if name in staged:
+            out[name] = staged[name]
+        else:
+            with profiler.phase(name):
+                out[name] = stack_columns(cols, n, device)
+    return out

@@ -15,8 +15,11 @@ This is the PyTorch port's prover (counterpart of sha2cq_tpu/plonk/
 prover.py).  With h_device=True the h computation -- every basis conversion,
 the h fold, the vanishing quotient and the return to coefficients -- runs on
 an explicit torch device through plonk/device_eval.HFn; everything else is
-the shared host protocol and the native C layer.  Proofs are byte-identical
-to the reference's under the same rng.
+the shared host protocol and the native C layer.  As in the reference, the
+device h's advice, instance and CQ f stacks are packed and copied on
+threads while the CQ and permutation phases run (device_eval.StagedStacks);
+a staging failure raises.  Proofs are byte-identical to the reference's
+under the same rng.
 """
 from __future__ import annotations
 
@@ -272,6 +275,25 @@ def create_proof(params, pk: ProvingKey, circuits: Sequence, instances,
     mark("witness_and_advice_commit")
     challenges_list = [challenges[i] for i in range(cs.num_challenges)]
 
+    # Stage the advice and instance stacks of the device h NOW, on a thread:
+    # the native pack releases the GIL and the copy is asynchronous, so both
+    # ride under the CQ and permutation phases below (the reference's
+    # prover.py:283-311).  The z, lookup and CQ-b stacks are made by those
+    # phases and cannot stage early.  A staging failure is raised where the
+    # h phase takes the stacks.
+    staging = None
+    if h_device:
+        from .device_eval import StagedStacks
+        staging = StagedStacks(n, device)
+        stacks = {}
+        for c_idx, adv in enumerate(advice_singles):
+            stacks[(c_idx, "advice")] = [
+                b if b is not None else v
+                for b, v in zip(adv["bufs"], adv["values"])]
+            stacks[(c_idx, "instance")] = instance_singles[c_idx]["values"]
+        staging.start(stacks)
+        mark("h_stage_advice")
+
     # ---- theta; lookups + CQ commit ------------------------------------
     theta = transcript.squeeze_challenge()
 
@@ -302,6 +324,15 @@ def create_proof(params, pk: ProvingKey, circuits: Sequence, instances,
             column_buffers=col_bufs))
 
     mark("cq_commit_f_m")
+    if staging is not None:
+        # the CQ f coefficient polys exist before beta when the batched CQ
+        # commit made them (f_coeff; the log-derivative phase hands the same
+        # polys on as "f"): stage their stack too (prover.py:344-367)
+        staging.start({
+            (c_idx, "static_f"): [r["f_coeff"] for r in per_circuit]
+            for c_idx, per_circuit in enumerate(static_committed)
+            if per_circuit and all("f_coeff" in r for r in per_circuit)})
+        mark("h_stage_f")
     # ---- beta, gamma; permutations; products; CQ log derivatives --------
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
@@ -351,14 +382,19 @@ def create_proof(params, pk: ProvingKey, circuits: Sequence, instances,
         ncols = cs.num_advice_columns
         h_bufs = []
         advice_coeff = []
+        staged = {}
         for c_idx, adv in enumerate(advice_singles):
             with profiler.phase("h_pack_inputs"):
+                if staging is not None:     # the first circuit's pack waits
+                    staged, staging = staging.take(), None
                 adv_cols = [b if b is not None else v
                             for b, v in zip(adv["bufs"], adv["values"])]
                 inputs = prepare_h_inputs(
                     pk, adv_cols, instance_singles[c_idx]["values"],
                     lookups_committed[c_idx], static_log[c_idx],
-                    permutations[c_idx], dev)
+                    permutations[c_idx], dev,
+                    staged={name: t for (c, name), t in staged.items()
+                            if c == c_idx})
                 scal = h_fn.scalar_table(y, beta, gamma, theta,
                                          challenges_list)
             with profiler.phase("h_device"):
@@ -376,6 +412,7 @@ def create_proof(params, pk: ProvingKey, circuits: Sequence, instances,
                 flat = Dv.unpack_buf(advice_coeff_dev, Dv.FR)
                 advice_coeff.append(
                     {"polys": [flat[i * n:(i + 1) * n] for i in range(ncols)]})
+        del staged, inputs      # the device stacks go before the multiopen
         with profiler.phase("h_commit"):
             from ..native_loader import fr_unbuf, native_fr_fold_buf
             h_acc = h_bufs[0]

@@ -83,9 +83,13 @@ def test_cpu_tensors_take_the_plain_version():
     CF.reset_launches()
     ta, tb = compat.from_jax_limbs(A), compat.from_jax_limbs(B)
     assert torch.equal(CF.mont_mul(ta, tb, tctx), TD.mont_mul_plain(ta, tb, tctx))
-    assert CF.launches == {"mont_mul": 0, "planes_to_limbs_mul": 0,
-                           "h_vm_run": 0, "ntt_radix2": 0,
-                           "msm_bucket_sums": 0, "msm_window_reduce": 0}
+    from sha2cq_tpu_torch.curves.secp256k1 import device_ctxs
+    wide = device_ctxs()[0]
+    assert torch.equal(CF.mont_mul(ta, tb, wide), TD.mont_mul_plain(ta, tb, wide))
+    assert CF.launches == {"mont_mul": 0, "mont_mul_wide": 0,
+                           "planes_to_limbs_mul": 0, "h_vm_run": 0,
+                           "ntt_radix2": 0, "msm_bucket_sums": 0,
+                           "msm_window_reduce": 0}
 
 
 def test_native_loader_modulus_is_the_field_modulus():
