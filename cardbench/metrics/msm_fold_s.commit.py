@@ -1,0 +1,8 @@
+"""msm_fold_s.commit: a commitment's seconds in the span msm_fold (the window
+sums copied to the host, made affine and folded), from the program's span
+log; the median over the window's commitments (cardbench/commit_log.py)."""
+from cardbench import commit_log
+
+
+def read(record):
+    return commit_log.span_seconds(record, "msm_fold")

@@ -149,7 +149,8 @@ def pack_affine(points=None, device=None, packed=None, n=None) -> PointArray:
     words = words[:n]
     if not ((words[:, 8] == 1).all() and (words[:, 9:] == 0).all()):
         raise ValueError("a packed basis holds affine points (z = 1)")
-    xy = torch.from_numpy(np.ascontiguousarray(words[:, :8])).to(device)
+    xy = D.to_device(torch.from_numpy(np.ascontiguousarray(words[:, :8])),
+                     device)
     limbs = xy.view(torch.int16).t().to(LIMB) & MASK        # (32, n): x, y
     xy = D.to_mont(torch.cat([limbs[:NLIMB], limbs[NLIMB:]], dim=1), FQ)
     return (xy[:, :n], xy[:, n:], D.ones((n,), FQ, device))

@@ -23,6 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import profiler
 from . import host
 
 NLIMB = 16          # limbs per element
@@ -89,9 +90,29 @@ def _native_lib(ctx: FieldCtx, n: int):
     return NL if NL.get_lib() is not None else None
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether `t` lives on a CUDA card: the test of the copy and wait
+    counters (profiler h2d_bytes, host_syncs)."""
+    return t.is_cuda
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor copied to `device`.  To a card the copy is from
+    pageable memory, so the host waits for the card's stream: counted as
+    h2d_bytes and one of host_syncs."""
+    out = t.to(device)
+    if on_card(out):
+        profiler.count("h2d_bytes", t.nbytes)
+        profiler.count("host_syncs")
+    return out
+
+
 def limbs_np(arr) -> np.ndarray:
-    """A limb tensor (int32, or int16 storage) or array -> uint32 numpy."""
+    """A limb tensor (int32, or int16 storage) or array -> uint32 numpy (a
+    card's tensor: one host wait, counted)."""
     if isinstance(arr, torch.Tensor):
+        if on_card(arr):
+            profiler.count("host_syncs")
         t = arr.detach().cpu()
         if t.dtype == torch.int16:
             return t.numpy().view(np.uint16).astype(np.uint32)
@@ -105,8 +126,8 @@ def limbs_np(arr) -> np.ndarray:
 def pack(values: Sequence[int], ctx: FieldCtx, mont: bool = True,
          device=None) -> torch.Tensor:
     """ints -> int32[16, n] limb tensor (Montgomery form by default)."""
-    return torch.from_numpy(np_pack(values, ctx, mont=mont).astype(np.int32)
-                            ).to(device)
+    return to_device(torch.from_numpy(
+        np_pack(values, ctx, mont=mont).astype(np.int32)), device)
 
 
 def pack_scalar(v: int, ctx: FieldCtx, mont: bool = True,
@@ -311,7 +332,7 @@ def mont_mul(a, b, ctx: FieldCtx = FR):
 # `device` places new tensors.
 
 def _const_limbs(limbs: np.ndarray, batch_shape, device) -> torch.Tensor:
-    t = torch.as_tensor(limbs.astype(np.int32), device=device)
+    t = to_device(torch.from_numpy(limbs.astype(np.int32)), device)
     t = t.reshape((NLIMB,) + (1,) * len(batch_shape))
     return t.expand(NLIMB, *batch_shape).contiguous()
 
@@ -352,8 +373,8 @@ def mont_sq(a, ctx: FieldCtx = FR):
 
 def _scalar_limbs(limbs: np.ndarray, a: torch.Tensor) -> torch.Tensor:
     """One element as a (16, 1, ...) tensor broadcasting against a."""
-    return torch.as_tensor(limbs.astype(np.int32), device=a.device).reshape(
-        (NLIMB,) + (1,) * (a.dim() - 1))
+    t = to_device(torch.from_numpy(limbs.astype(np.int32)), a.device)
+    return t.reshape((NLIMB,) + (1,) * (a.dim() - 1))
 
 
 def to_mont(a, ctx: FieldCtx = FR):

@@ -28,6 +28,7 @@ from ..curves import host as CH
 from ..fields import device as D
 from ..fields import host as H
 from ..fields.device import FQ, LIMB, NLIMB
+from ..utils.profiling import profiler
 
 # Same threshold as the reference: below it the host Pippenger is used.
 HOST_THRESHOLD = 1 << 20
@@ -126,7 +127,8 @@ def _scalars_to_digits(buf, c: int, device=None) -> torch.Tensor:
     (ceil(256/c), n) int32 c-bit windows, the reference's digits, computed
     with tensor ops on `device`."""
     words = torch.from_numpy(np.ascontiguousarray(buf).view(np.int64))
-    w32 = words.to(device).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    w32 = D.to_device(words, device).view(torch.int32).to(torch.int64) \
+        & 0xFFFFFFFF
     w32 = torch.cat([w32, torch.zeros_like(w32[:, :1])], dim=1)   # (n, 9)
     mask = (1 << c) - 1
     rows = []
@@ -164,6 +166,8 @@ def affine_words(points: PD.PointArray) -> torch.Tensor:
 def check_affine(points: PD.PointArray) -> None:
     """Raise unless every Z is 0 or Montgomery one (one host sync)."""
     Z = points[2]
+    if D.on_card(Z):
+        profiler.count("host_syncs")
     if not bool((D.is_zero(Z) | D.eq(Z, D.ones((1,), FQ, Z.device))).all()):
         raise ValueError("K5 adds affine points: each Z must be 0 or one")
 
@@ -470,20 +474,34 @@ def msm_device(scalars: Sequence[int], points, c: Optional[int] = None,
     affine point (None for the identity).  points: host affine list;
     packed: a native basis (native_loader.pack_points_affine) covering the
     points, read in its place.  c: window bits, by default
-    pick_window_bits(n)."""
+    pick_window_bits(n).
+
+    Each step is a profiler phase, timed on the host (a phase around a
+    launch times the launch, not the kernel): msm_scalars, msm_digits,
+    msm_basis, msm_layout, msm_bucket_sums, msm_window_reduce, msm_fold."""
     from ..native_loader import fr_buf
     dev = torch.device(device)
     torch.empty(0, device=dev)       # no card: torch's CUDA error, here
     n = len(scalars)
     c = c or pick_window_bits(n)
-    digits = _scalars_to_digits(fr_buf([s % H.FR_MOD for s in scalars]), c, dev)
-    if packed is not None:
-        pts = PD.pack_affine(device=dev, packed=packed, n=n)
-    else:
-        pts = PD.pack_affine(points[:n], device=dev)
-    order, starts = bucket_layout(digits, c)
-    sums = msm_window_reduce(msm_bucket_sums(affine_words(pts), order, starts))
-    return _fold_windows(sums, c)
+    with profiler.phase("msm_scalars"):
+        buf = fr_buf([s % H.FR_MOD for s in scalars])
+    with profiler.phase("msm_digits"):
+        digits = _scalars_to_digits(buf, c, dev)
+        del buf
+    with profiler.phase("msm_basis"):
+        if packed is not None:
+            pts = PD.pack_affine(device=dev, packed=packed, n=n)
+        else:
+            pts = PD.pack_affine(points[:n], device=dev)
+    with profiler.phase("msm_layout"):
+        order, starts = bucket_layout(digits, c)
+    with profiler.phase("msm_bucket_sums"):
+        buckets = msm_bucket_sums(affine_words(pts), order, starts)
+    with profiler.phase("msm_window_reduce"):
+        sums = msm_window_reduce(buckets)
+    with profiler.phase("msm_fold"):
+        return _fold_windows(sums, c)
 
 
 def packed_basis(obj, attr: str, points):

@@ -481,7 +481,10 @@ class StagedStacks:
         self._errors: List[BaseException] = []
 
     def start(self, stacks: Dict) -> None:
+        trace = profiler.trace_id()
+
         def run():
+            profiler.adopt(trace)       # its phases join the opener's trace
             try:
                 stage_stacks(self._out, stacks, self.n, self.device)
             except BaseException as e:      # re-raised by take()

@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence
 from ...curves import host as CH
 from ...fields import host as H
 from ...ops import msm as M
+from ...utils.profiling import profiler
 
 P = H.FR_MOD
 
@@ -89,10 +90,15 @@ class ParamsKZG:
         )
 
     def commit(self, coeffs: Sequence[int]) -> CH.G1Affine:
-        """Commit to a polynomial in coefficient (monomial) form."""
-        assert len(coeffs) <= len(self.g)
-        return M.msm(list(coeffs), self.g[: len(coeffs)],
-                     packed=M.packed_basis(self, "_g_packed", self.g))
+        """Commit to a polynomial in coefficient (monomial) form (the
+        profiler phase kzg_commit).  The MSMs only read their inputs and
+        take the first len(coeffs) points of the basis, so a list of
+        coefficients and the basis go uncopied."""
+        with profiler.phase("kzg_commit"):
+            assert len(coeffs) <= len(self.g)
+            scalars = coeffs if isinstance(coeffs, list) else list(coeffs)
+            return M.msm(scalars, self.g,
+                         packed=M.packed_basis(self, "_g_packed", self.g))
 
     def commit_lagrange(self, values: Sequence[int]) -> CH.G1Affine:
         """Commit to a polynomial given by its evaluations on the domain."""
