@@ -44,36 +44,43 @@ _tried = False
 build_error: Optional[str] = None   # why this process has no library
 
 
-def _build() -> bool:
-    """Make _LIB exist, compiling it unless another process already did.
-    Under an exclusive flock on a lock file beside it, a process that finds
-    the library loads it as it is; otherwise it compiles to a temporary
-    name in the same directory and moves the file into place with
-    os.replace, so no process ever opens a half-written library.  False,
-    with `build_error` set, when the compiler is missing or fails."""
-    global build_error
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+def build_locked(lib: str, cmd: List[str]) -> Optional[str]:
+    """Make the library `lib` exist, running the compiler command `cmd` (its
+    output path appended) unless another process already did.  Under an
+    exclusive flock on a lock file beside it, a process that finds the
+    library loads it as it is; otherwise it compiles to a temporary name in
+    the same directory and moves the file into place with os.replace, so no
+    process ever opens a half-written library.  None on success, else why
+    the compiler is missing or failed."""
+    build_dir = os.path.dirname(lib)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)     # released when the file closes
-        if os.path.exists(_LIB):
-            return True
-        tmp = f"{_LIB}.{os.getpid()}.tmp"
+        if os.path.exists(lib):
+            return None
+        tmp = f"{lib}.{os.getpid()}.tmp"
         try:
-            res = subprocess.run(
-                ["cc", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-                 _SRC, "-o", tmp], capture_output=True, text=True,
-                timeout=120)
+            res = subprocess.run(cmd + ["-o", tmp], capture_output=True,
+                                 text=True, timeout=120)
             if res.returncode != 0:
-                build_error = f"cc failed ({res.returncode}): {res.stderr[-2000:]}"
-                return False
-            os.replace(tmp, _LIB)
+                return (f"{cmd[0]} failed ({res.returncode}): "
+                        f"{res.stderr[-2000:]}")
+            os.replace(tmp, lib)
         except (OSError, subprocess.TimeoutExpired) as e:
-            build_error = f"cc could not run: {e!r}"
-            return False
+            return f"{cmd[0]} could not run: {e!r}"
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-    return True
+    return None
+
+
+def _build() -> bool:
+    """Make _LIB exist (build_locked); False, with `build_error` set, when
+    the compiler is missing or fails."""
+    global build_error
+    build_error = build_locked(_LIB, ["cc", "-O3", "-march=native",
+                                      "-fopenmp", "-shared", "-fPIC", _SRC])
+    return build_error is None
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

@@ -478,14 +478,17 @@ def msm_device(scalars: Sequence[int], points, c: Optional[int] = None,
 
     Each step is a profiler phase, timed on the host (a phase around a
     launch times the launch, not the kernel): msm_scalars, msm_digits,
-    msm_basis, msm_layout, msm_bucket_sums, msm_window_reduce, msm_fold."""
-    from ..native_loader import fr_buf
+    msm_basis, msm_layout, msm_bucket_sums, msm_window_reduce, msm_fold.
+    msm_scalars counts `scalars_slow`, the scalars that were not exact
+    ints in [0, r) and so were reduced in Python (scalar_words.fr_words)."""
+    from ..scalar_words import fr_words
     dev = torch.device(device)
     torch.empty(0, device=dev)       # no card: torch's CUDA error, here
     n = len(scalars)
     c = c or pick_window_bits(n)
     with profiler.phase("msm_scalars"):
-        buf = fr_buf([s % H.FR_MOD for s in scalars])
+        buf, slow = fr_words(scalars)
+        profiler.count("scalars_slow", slow)
     with profiler.phase("msm_digits"):
         digits = _scalars_to_digits(buf, c, dev)
         del buf

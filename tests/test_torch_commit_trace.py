@@ -80,7 +80,8 @@ def test_commit_counts_copies_and_waits_as_on_a_card(commit, monkeypatch,
     assert by["msm_digits"] == {"h2d_bytes": 32 * N, "host_syncs": 1}
     assert by["msm_basis"] == {"h2d_bytes": 64 * N + 128, "host_syncs": 3}
     assert by["msm_fold"] == {"host_syncs": 3}
-    assert by["msm_scalars"] == by["msm_layout"] == by["kzg_commit"] == {}
+    assert by["msm_layout"] == by["kzg_commit"] == {}
+    assert by["msm_scalars"] == {"scalars_slow": 0}
     monkeypatch.setattr(profiler, "_enabled", True)
     pts = PD.pack_affine(params.g[:N], device="cpu")
     try:
@@ -97,8 +98,12 @@ def test_commit_counts_copies_and_waits_as_on_a_card(commit, monkeypatch,
 
 
 def test_commit_counts_nothing_on_the_cpu(commit):
+    """No copy and no wait on the CPU: the one count is msm_scalars' slow
+    scalars, none for canonical coefficients."""
     _, _, log = commit()
-    assert all(s.counts == {} for s in log)
+    assert all(s.counts == {} for s in log if s.name != "msm_scalars")
+    assert [s.counts for s in log if s.name == "msm_scalars"] == [
+        {"scalars_slow": 0}]
 
 
 # -- the readers

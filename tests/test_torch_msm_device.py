@@ -312,3 +312,38 @@ def test_commit_through_the_device_path_matches_jax(monkeypatch):
     assert port.commit(coeffs[:8]) == ref.commit(coeffs[:8])   # host path
     want = [NL.get_lib() is not None] * 3
     assert calls == want
+
+
+@pytest.mark.parametrize("route", ["library", "fallback"])
+def test_device_msm_reduces_every_scalar_and_counts_the_slow_ones(
+        monkeypatch, route):
+    """Scalars that mix canonical values, negatives, values >= r, a bool and
+    an int subclass: msm_device (c = 4) equals msm_host on the same list,
+    and its msm_scalars span counts as `scalars_slow` the scalars that were
+    not exact ints in [0, r), all of them without the scalar_words
+    library."""
+    from sha2cq_tpu_torch import scalar_words as SW
+    from sha2cq_tpu_torch.utils.profiling import profiler
+
+    class Int(int):
+        pass
+
+    if route == "fallback":
+        monkeypatch.setattr(SW, "_lib", None)
+        monkeypatch.setattr(SW, "_tried", True)
+    rng = random.Random(11)
+    pts = _points(24, 12)
+    sc = [rng.randrange(FR_MOD) for _ in pts]
+    sc[1], sc[4], sc[6] = -sc[1], sc[4] + FR_MOD, -1
+    sc[9], sc[13], sc[17] = (1 << 256) - 1, True, Int(sc[17])
+    slow = 6 if route == "library" else len(sc)
+    monkeypatch.setattr(profiler, "_enabled", True)
+    profiler.clear_log()
+    try:
+        got = M.msm_device(sc, pts, c=4, device="cpu")
+        counts = [s.counts for s in profiler.log() if s.name == "msm_scalars"]
+    finally:
+        profiler.clear_log()
+        profiler.reset()
+    assert got == M.msm_host(sc, pts)
+    assert counts == [{"scalars_slow": slow}]
