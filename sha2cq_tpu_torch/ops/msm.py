@@ -3,7 +3,10 @@ sha2cq_tpu/ops/msm.py).
 
 msm() sends an MSM of fewer than HOST_THRESHOLD points to the native host
 Pippenger (native/fieldops.c) and a larger one to the device Pippenger
-msm_device, exactly as the reference does.
+msm_device, exactly as the reference does.  msm_multi, the prover's batch
+of commitments, sends its non-indexed jobs of HOST_THRESHOLD points or more
+to msm_device_many (one basis upload for the jobs that share a basis, then
+msm_device's steps a column) and the rest to one native call.
 
 The device Pippenger, per window of c scalar bits:
   digits                     (_scalars_to_digits: tensor ops on the device)
@@ -493,18 +496,89 @@ def msm_device(scalars: Sequence[int], points, c: Optional[int] = None,
         digits = _scalars_to_digits(buf, c, dev)
         del buf
     with profiler.phase("msm_basis"):
-        if packed is not None:
-            pts = PD.pack_affine(device=dev, packed=packed, n=n)
-        else:
-            pts = PD.pack_affine(points[:n], device=dev)
+        pts = _upload_basis(points, packed, n, dev)
     with profiler.phase("msm_layout"):
         order, starts = bucket_layout(digits, c)
     with profiler.phase("msm_bucket_sums"):
         buckets = msm_bucket_sums(affine_words(pts), order, starts)
+    return _reduce_and_fold(buckets, c)
+
+
+def _upload_basis(points, packed, n: int, dev) -> PD.PointArray:
+    """The first n points of a basis on `dev`: from the native packed basis
+    when there is one, else from the host affine list."""
+    if packed is not None:
+        return PD.pack_affine(device=dev, packed=packed, n=n)
+    return PD.pack_affine(points[:n], device=dev)
+
+
+def _reduce_and_fold(buckets: PD.PointArray, c: int) -> CH.G1Affine:
+    """msm_window_reduce (K6), then the host fold of the window sums."""
     with profiler.phase("msm_window_reduce"):
         sums = msm_window_reduce(buckets)
     with profiler.phase("msm_fold"):
         return _fold_windows(sums, c)
+
+
+def msm_device_many(columns, packed=None, points=None, c: Optional[int] = None,
+                    device="cuda") -> list:
+    """Pippenger MSMs of many scalar columns over one basis on `device`: per
+    column sum_i column[i] * basis[i], a host affine point (None for the
+    identity), equal to msm_device's for that column.  A column is an (m, 4)
+    little-endian u64 buffer (native_loader.fr_buf's layout, the prover's
+    columns) or a sequence of ints (packed by scalar_words.fr_words); a
+    buffer's words go to digits as they are (every basis point has order r,
+    so words of s + r give the point of s).  packed: a native basis
+    (native_loader.pack_points_affine) covering the longest column, read in
+    place of points, the host affine list.  c: window bits, by default
+    pick_window_bits of each column's length.
+
+    One profiler phase msm_device_many around the batch, counting
+    msm_columns.  The basis is copied to the device and cut into K5's words
+    once (msm_basis); then each column takes msm_device's steps
+    (msm_scalars for a column of ints, msm_digits, msm_layout,
+    msm_bucket_sums, msm_window_reduce, msm_fold).  While the profiler is
+    on, msm_layout counts msm_nonzero_digits, the nonzero window digits K5
+    adds (one more host wait on a card)."""
+    dev = torch.device(device)
+    torch.empty(0, device=dev)       # no card: torch's CUDA error, here
+    for col in columns:
+        if isinstance(col, np.ndarray) and (
+                col.ndim != 2 or col.shape[1] != 4 or col.dtype.itemsize != 8):
+            raise ValueError(f"a scalar buffer is (m, 4) u64 words, got "
+                             f"{col.shape} {col.dtype}")
+    out: list = [None] * len(columns)
+    with profiler.phase("msm_device_many"):
+        profiler.count("msm_columns", len(columns))
+        n = max((len(col) for col in columns), default=0)
+        if n == 0:
+            return out
+        with profiler.phase("msm_basis"):
+            words = affine_words(_upload_basis(points, packed, n, dev))
+        for j, col in enumerate(columns):
+            m = len(col)
+            if m == 0:
+                continue
+            cj = c or pick_window_bits(m)
+            if not isinstance(col, np.ndarray):
+                from ..scalar_words import fr_words
+                with profiler.phase("msm_scalars"):
+                    col, slow = fr_words(col)
+                    profiler.count("scalars_slow", slow)
+            with profiler.phase("msm_digits"):
+                digits = _scalars_to_digits(col, cj, dev)
+            with profiler.phase("msm_layout"):
+                order, starts = bucket_layout(digits, cj)
+                if profiler.enabled:
+                    if D.on_card(starts):
+                        profiler.count("host_syncs")
+                    profiler.count("msm_nonzero_digits", int(
+                        digits.shape[0] * m - starts[:, 1].sum()))
+            del digits
+            with profiler.phase("msm_bucket_sums"):
+                buckets = msm_bucket_sums(words[:m], order, starts)
+            out[j] = _reduce_and_fold(buckets, cj)
+    return out
 
 
 def packed_basis(obj, attr: str, points):
@@ -567,17 +641,30 @@ def _packed_basis_disk(points):
 
 
 def msm_multi(jobs) -> list:
-    """Many independent MSMs in ONE native call (g1_msm_unified, OpenMP
-    across jobs) — the prover's per-phase commitment batches.  jobs: list
-    of (packed_basis, indices_or_None, scalars, fallback_points); falls back
-    to the per-job host path when native is unavailable, raises MemoryError
-    when the native side could not allocate a job.  Returns G1Affine (or
-    None for empty jobs) per job."""
+    """Many independent MSMs — the prover's per-phase commitment batches.
+    jobs: list of (packed_basis, indices_or_None, scalars, fallback_points),
+    scalars a list of ints or an (m, 4) u64 buffer.  Non-indexed jobs of
+    HOST_THRESHOLD points or more run on the card, msm_device_many over each
+    basis they share; the rest in ONE native call (g1_msm_unified, OpenMP
+    across jobs), falling back to the per-job host path when native is
+    unavailable; raises MemoryError when the native side could not allocate
+    a job.  Returns G1Affine (or None for empty jobs) per job."""
     out: list = [None] * len(jobs)
-    native = [(j, job) for j, job in enumerate(jobs)
-              if len(job[2]) > 0 and job[0] is not None]
-    rest = [(j, job) for j, job in enumerate(jobs)
-            if len(job[2]) > 0 and job[0] is None]
+    by_basis: dict = {}
+    host = []
+    for j, job in enumerate(jobs):
+        if job[1] is None and len(job[2]) >= HOST_THRESHOLD:
+            by_basis.setdefault((id(job[0]), id(job[3])), []).append(j)
+        elif len(job[2]) > 0:
+            host.append((j, job))
+    for js in by_basis.values():
+        packed, _, _, pts = jobs[js[0]]
+        res = msm_device_many([jobs[j][2] for j in js], packed=packed,
+                              points=pts)
+        for j, point in zip(js, res):
+            out[j] = point
+    native = [(j, job) for j, job in host if job[0] is not None]
+    rest = [(j, job) for j, job in host if job[0] is None]
     if native:
         from ..native_loader import native_msm_multi
         res = native_msm_multi([job[:3] for _, job in native])

@@ -10,8 +10,9 @@ Mirrors reference poly/kzg/commitment.rs:
         [(L_i(x)-L_i(0))/x]_1 = omega^{-i}[L_i(x)]_1 - (1/N)[x^{N-1}]_1
                                                                  (156-170)
 
-commit/commit_lagrange dispatch through ops/msm.py: host Pippenger for tiny
-commitments, TPU Pippenger for bulk ones.  Production-grade SRS generation at
+commit/commit_lagrange and the batches commit_lagrange_many/commit_coeff_buf
+dispatch through ops/msm.py: host Pippenger for tiny commitments, the device
+Pippenger from HOST_THRESHOLD points.  Production-grade SRS generation at
 2^20+ runs the power chains on device (vectorized double-and-add).
 
 The port's own copy of sha2cq_tpu/poly/kzg/params.py.
@@ -109,18 +110,26 @@ class ParamsKZG:
 
     def commit_coeff_buf(self, buf) -> CH.G1Affine:
         """commit() for a (m, 4) canonical u64 coeff buffer — no bigint
-        round trip (the GWC witness commitments)."""
+        round trip (SHPLONK's h commitments), through ops/msm.msm_multi:
+        on the card from HOST_THRESHOLD coefficients, else the native host
+        MSM (the profiler phase kzg_commit_many)."""
         assert buf.shape[0] <= len(self.g)
-        packed = M.packed_basis(self, "_g_packed", self.g)
-        return M.msm_multi([(packed, None, buf, self.g)])[0]
+        with profiler.phase("kzg_commit_many"):
+            packed = M.packed_basis(self, "_g_packed", self.g)
+            return M.msm_multi([(packed, None, buf, self.g)])[0]
 
     def commit_lagrange_many(self, columns) -> list:
-        """Batch commit_lagrange over many value lists: one native
-        g1_msm_multi call, OpenMP across columns (the prover's per-phase
-        advice commitment batch)."""
-        packed = M.packed_basis(self, "_g_lagrange_packed", self.g_lagrange)
-        return M.msm_multi([(packed, None, col, self.g_lagrange)
-                            for col in columns])
+        """Batch commit_lagrange over many columns, each a list of values or
+        an (n, 4) canonical u64 buffer (the prover's per-phase advice and
+        permutation z batches), through ops/msm.msm_multi: columns of
+        HOST_THRESHOLD points or more on the card with one upload of the
+        Lagrange basis (msm_device_many), the rest in one native call,
+        OpenMP across columns (the profiler phase kzg_commit_many)."""
+        with profiler.phase("kzg_commit_many"):
+            packed = M.packed_basis(self, "_g_lagrange_packed",
+                                    self.g_lagrange)
+            return M.msm_multi([(packed, None, col, self.g_lagrange)
+                                for col in columns])
 
     def verifier_params(self) -> "ParamsKZG":
         return self
