@@ -56,8 +56,10 @@ catches an error and goes on):
    (poly/kzg/params._g1_powers_of_s, OpenMP), 2^20 random full-width
    coefficients, ParamsKZG.commit on the card (msm() -> msm_device -> K5 ->
    K6 -> host fold) cold and warm, equal to the native host Pippenger
-   (ops/msm.msm_host) on the same packed basis; K1, K5 and K6 launched by
-   the commit; the pack-and-digit seconds, the host seconds, the SRS build
+   (ops/msm.msm_host) on the same packed basis; K5 and K6 launched by both
+   commits, K1 by the cold one alone (it fills the device basis cache,
+   basis_cached 0 in its msm_basis span) and none by the warm one, which
+   reads the cached words (basis_cached 1); the pack-and-digit seconds, the host seconds, the SRS build
    seconds, the peak device bytes; commits of a 0/1 column, a 16-bit
    column and one scalar for every point (each puts half or all of a
    window's points in one bucket) against the host MSM, both timed; at the
@@ -1058,12 +1060,20 @@ def main() -> None:
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     commits = {}
+    profiler.enable()
     for run in ("cold", "warm"):
+        profiler.clear_log()
         CF.reset_launches()
         t0 = time.perf_counter()
         point = params.commit(coeffs)
         torch.cuda.synchronize()
-        commits[run] = (point, time.perf_counter() - t0, dict(CF.launches))
+        cached = [sp.counts.get("basis_cached") for sp in profiler.log()
+                  if sp.name == "msm_basis"]
+        commits[run] = (point, time.perf_counter() - t0, dict(CF.launches),
+                        cached)
+    profiler.clear_log()
+    profiler.reset()
+    profiler.disable()
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     host = M.msm_host(coeffs, params.g, packed=packed)
@@ -1073,13 +1083,24 @@ def main() -> None:
         cold_s=commits["cold"][1], warm_s=commits["warm"][1],
         host_native_s=host_s, srs_build_s=srs_s, basis_pack_s=basis_s,
         peak_device_bytes=peak, resident_bytes_before=resident,
-        launches=commits["warm"][2])
+        cold_launches=commits["cold"][2], launches=commits["warm"][2],
+        basis_cached={run: v[3] for run, v in commits.items()})
     if any(v[0] != host for v in commits.values()):
         fail("the card's commitment of 2^20 points differs from the native "
              "host MSM's")
-    for name in ("mont_mul", "msm_bucket_sums", "msm_window_reduce"):
+    for name in ("msm_bucket_sums", "msm_window_reduce"):
         if any(v[2][name] <= 0 for v in commits.values()):
             fail(f"kernel {name} was not launched by the 2^20-point commit")
+    if commits["cold"][2]["mont_mul"] <= 0:
+        fail("kernel mont_mul was not launched by the cold 2^20-point "
+             "commit, which fills the device basis cache")
+    if commits["warm"][2]["mont_mul"] != 0:
+        fail("the warm 2^20-point commit launched mont_mul: it did not read "
+             "the cached basis words")
+    if (commits["cold"][3], commits["warm"][3]) != ([0], [1]):
+        fail("msm_basis counted basis_cached "
+             f"{commits['cold'][3]} cold and {commits['warm'][3]} warm, "
+             "not [0] and [1]")
     for name in ("msm_bucket_sums", "msm_window_reduce"):
         kernels[name]["launches"] = commits["warm"][2][name]
     # columns of small values, as a circuit's witness mostly holds, and one

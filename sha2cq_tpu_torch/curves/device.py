@@ -137,7 +137,10 @@ def pack_affine(points=None, device=None, packed=None, n=None) -> PointArray:
     canonical x, y, z in four little-endian words each, z = 1) whose first
     n points (all of them by default) are taken instead of `points`.  Its
     words are cut into 16-bit limbs with tensor ops and turned into
-    Montgomery form on `device` (one product by R^2 mod q: K1 on a card)."""
+    Montgomery form on `device` (one product by R^2 mod q: K1 on a card).
+    The device MSM calls this once per packed basis and device and keeps
+    K5's words of the result (ops/msm._upload_basis), so a commitment
+    basis is uploaded and cut once, not on every MSM."""
     if packed is None:
         xs = [0 if pt is None else pt[0] for pt in points]
         ys = [1 if pt is None else pt[1] for pt in points]

@@ -5,8 +5,13 @@ msm() sends an MSM of fewer than HOST_THRESHOLD points to the native host
 Pippenger (native/fieldops.c) and a larger one to the device Pippenger
 msm_device, exactly as the reference does.  msm_multi, the prover's batch
 of commitments, sends its non-indexed jobs of HOST_THRESHOLD points or more
-to msm_device_many (one basis upload for the jobs that share a basis, then
+to msm_device_many (the jobs that share a basis in one call, then
 msm_device's steps a column) and the rest to one native call.
+
+A native packed basis (packed_basis, fixed for its owner's life) is
+uploaded, checked and cut into K5's words once per device, on the first MSM
+over it there (_upload_basis); every later MSM over it on that device reads
+the words from a cache kept on the packed buffer, so they die with it.
 
 The device Pippenger, per window of c scalar bits:
   digits                     (_scalars_to_digits: tensor ops on the device)
@@ -21,6 +26,7 @@ order, so a kernel's output equals its plain version's limb for limb.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -483,7 +489,11 @@ def msm_device(scalars: Sequence[int], points, c: Optional[int] = None,
     launch times the launch, not the kernel): msm_scalars, msm_digits,
     msm_basis, msm_layout, msm_bucket_sums, msm_window_reduce, msm_fold.
     msm_scalars counts `scalars_slow`, the scalars that were not exact
-    ints in [0, r) and so were reduced in Python (scalar_words.fr_words)."""
+    ints in [0, r) and so were reduced in Python (scalar_words.fr_words).
+    msm_basis takes K5's words of the points from _upload_basis: a packed
+    basis is uploaded and cut into them on the first MSM over it on
+    `device` and read from the cache afterwards (`basis_cached` 0, then
+    1); a host list is uploaded every call."""
     from ..scalar_words import fr_words
     dev = torch.device(device)
     torch.empty(0, device=dev)       # no card: torch's CUDA error, here
@@ -496,20 +506,55 @@ def msm_device(scalars: Sequence[int], points, c: Optional[int] = None,
         digits = _scalars_to_digits(buf, c, dev)
         del buf
     with profiler.phase("msm_basis"):
-        pts = _upload_basis(points, packed, n, dev)
+        words = _upload_basis(points, packed, n, dev)
     with profiler.phase("msm_layout"):
         order, starts = bucket_layout(digits, c)
     with profiler.phase("msm_bucket_sums"):
-        buckets = msm_bucket_sums(affine_words(pts), order, starts)
+        buckets = msm_bucket_sums(words, order, starts)
     return _reduce_and_fold(buckets, c)
 
 
-def _upload_basis(points, packed, n: int, dev) -> PD.PointArray:
-    """The first n points of a basis on `dev`: from the native packed basis
-    when there is one, else from the host affine list."""
-    if packed is not None:
-        return PD.pack_affine(device=dev, packed=packed, n=n)
-    return PD.pack_affine(points[:n], device=dev)
+_BASIS_LOCK = threading.Lock()      # one fill of a basis a device
+
+
+def _upload_basis(points, packed, n: int, dev) -> torch.Tensor:
+    """K5's words (affine_words) of the first n points of a basis on `dev`.
+
+    A native packed basis is uploaded, checked (pack_affine's z = 1 test,
+    check_affine's Z test) and cut into K5's words once per device, all of
+    its points, under a lock; every later call over it on `dev` slices the
+    cached words, with no copy and no host wait.  Counts `basis_cached`: 0
+    on the fill, 1 on a hit.  The words are kept on the packed buffer itself
+    (its `_device_words`, one entry a device), so they die with it.  A host
+    affine list (packed None) is uploaded and checked every call and stored
+    nowhere."""
+    if packed is None:
+        return affine_words(PD.pack_affine(points[:n], device=dev))
+    cache = packed.__dict__.setdefault("_device_words", {})
+    key = _device_key(dev)
+    words = cache.get(key)
+    cached = words is not None
+    if not cached:
+        with _BASIS_LOCK:
+            words = cache.get(key)
+            cached = words is not None
+            if not cached:
+                pts = PD.pack_affine(device=dev, packed=packed)
+                words = _pack_affine_words(pts)
+                # the check's host wait comes after the words are made, so
+                # they are complete for any stream that reads them next
+                check_affine(pts)
+                cache[key] = words
+    profiler.count("basis_cached", int(cached))
+    return words[:n]
+
+
+def _device_key(dev: torch.device) -> str:
+    """The cache's name for a device: a card's index made explicit, so that
+    "cuda" and "cuda:0" share an entry."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
 
 
 def _reduce_and_fold(buckets: PD.PointArray, c: int) -> CH.G1Affine:
@@ -534,8 +579,10 @@ def msm_device_many(columns, packed=None, points=None, c: Optional[int] = None,
     pick_window_bits of each column's length.
 
     One profiler phase msm_device_many around the batch, counting
-    msm_columns.  The basis is copied to the device and cut into K5's words
-    once (msm_basis); then each column takes msm_device's steps
+    msm_columns.  msm_basis takes K5's words of the basis once a batch
+    (_upload_basis: a packed basis is uploaded and cut into them once per
+    device, then read from the cache; a host list once a batch); then each
+    column takes msm_device's steps
     (msm_scalars for a column of ints, msm_digits, msm_layout,
     msm_bucket_sums, msm_window_reduce, msm_fold).  While the profiler is
     on, msm_layout counts msm_nonzero_digits, the nonzero window digits K5
@@ -554,7 +601,7 @@ def msm_device_many(columns, packed=None, points=None, c: Optional[int] = None,
         if n == 0:
             return out
         with profiler.phase("msm_basis"):
-            words = affine_words(_upload_basis(points, packed, n, dev))
+            words = _upload_basis(points, packed, n, dev)
         for j, col in enumerate(columns):
             m = len(col)
             if m == 0:

@@ -122,8 +122,9 @@ class ParamsKZG:
         """Batch commit_lagrange over many columns, each a list of values or
         an (n, 4) canonical u64 buffer (the prover's per-phase advice and
         permutation z batches), through ops/msm.msm_multi: columns of
-        HOST_THRESHOLD points or more on the card with one upload of the
-        Lagrange basis (msm_device_many), the rest in one native call,
+        HOST_THRESHOLD points or more on the card (msm_device_many; the
+        Lagrange basis is uploaded once per card and then kept there), the
+        rest in one native call,
         OpenMP across columns (the profiler phase kzg_commit_many)."""
         with profiler.phase("kzg_commit_many"):
             packed = M.packed_basis(self, "_g_lagrange_packed",

@@ -10,7 +10,6 @@ from types import SimpleNamespace
 import pytest
 
 from cardbench import harness
-from sha2cq_tpu_torch.curves import device as PD
 from sha2cq_tpu_torch.fields import device as D
 from sha2cq_tpu_torch.ops import msm as M
 from sha2cq_tpu_torch.poly.kzg.params import ParamsKZG
@@ -31,18 +30,23 @@ def params():
 @pytest.fixture
 def commit(monkeypatch, params):
     """ParamsKZG.commit of N coefficients through msm_device on the CPU
-    (c = 4), with the port's profiler on; returns the commitment, the
-    host MSM's of the same coefficients and the span log."""
+    (c = 4), with the port's profiler on and the device basis cache empty;
+    run(commits) commits that many times and returns the last commitment,
+    the host MSM's of the same coefficients and the last commit's span
+    log."""
     monkeypatch.setattr(M, "HOST_THRESHOLD", N)
     monkeypatch.setattr(M, "msm_device", functools.partial(
         M.msm_device, device="cpu", c=4))
+    # a new packed basis, with no device words yet
+    monkeypatch.delitem(params.__dict__, "_g_packed", raising=False)
     monkeypatch.setattr(profiler, "_enabled", True)
     coeffs = [random.Random(5).randrange(1 << 254) for _ in range(N)]
 
-    def run():
-        profiler.clear_log()
+    def run(commits=1):
         try:
-            point = params.commit(coeffs)
+            for _ in range(commits):
+                profiler.clear_log()
+                point = params.commit(coeffs)
             return point, M.msm_host(coeffs, params.g), profiler.log()
         finally:
             profiler.clear_log()
@@ -66,44 +70,49 @@ def test_commit_opens_the_seven_steps_under_one_trace(commit):
     assert covered >= 0.95 * (root.end - root.start)
 
 
+@pytest.mark.parametrize("commits", [1, 2], ids=["first", "later"])
 def test_commit_counts_copies_and_waits_as_on_a_card(commit, monkeypatch,
-                                                      params):
+                                                      commits):
     """With every tensor taken for a card's: the digits' words copied up
-    (32 bytes a point, one wait), the basis (64 bytes a point, and the
-    Montgomery one and R^2, 64 bytes each: three waits), K5's input check
-    (its Montgomery one and its answer: two waits) and the fold's three
-    read-backs of X, Y and Z; the card's K5 and K6 copy nothing.  A card's
-    commit so counts 96 N + 192 bytes and 9 waits."""
+    (32 bytes a point, one wait) and the fold's three read-backs of X, Y
+    and Z; the card's K5 and K6 copy nothing.  The first commit over the
+    basis also fills the device basis cache in msm_basis: the basis (64
+    bytes a point, and the Montgomery one and R^2, 64 bytes each: three
+    waits) and K5's input check (its Montgomery one and its answer: two
+    waits), so it counts 96 N + 192 bytes and 9 waits.  A later commit
+    finds the words in the cache (basis_cached 1): 32 N bytes and 4
+    waits."""
     monkeypatch.setattr(D, "on_card", lambda t: True)
-    _, _, log = commit()
+    point, want, log = commit(commits)
+    assert point == want
     by = {s.name: s.counts for s in log}
     assert by["msm_digits"] == {"h2d_bytes": 32 * N, "host_syncs": 1}
-    assert by["msm_basis"] == {"h2d_bytes": 64 * N + 128, "host_syncs": 3}
+    if commits == 1:
+        assert by["msm_basis"] == {"h2d_bytes": 64 * N + 192,
+                                   "host_syncs": 5, "basis_cached": 0}
+    else:
+        assert by["msm_basis"] == {"basis_cached": 1}
     assert by["msm_fold"] == {"host_syncs": 3}
     assert by["msm_layout"] == by["kzg_commit"] == {}
     assert by["msm_scalars"] == {"scalars_slow": 0}
-    monkeypatch.setattr(profiler, "_enabled", True)
-    pts = PD.pack_affine(params.g[:N], device="cpu")
-    try:
-        with profiler.phase("k5_input"):
-            M.affine_words(pts)
-        k5 = profiler.log()[-1].counts
-    finally:
-        profiler.clear_log()
-        profiler.reset()
-    assert k5 == {"h2d_bytes": 64, "host_syncs": 2}
-    card = [by["msm_digits"], by["msm_basis"], k5, by["msm_fold"]]
-    assert sum(c.get("h2d_bytes", 0) for c in card) == 96 * N + 192
-    assert sum(c["host_syncs"] for c in card) == 9
+    card = [by["msm_digits"], by["msm_basis"], by["msm_fold"]]
+    bytes_up = sum(c.get("h2d_bytes", 0) for c in card)
+    waits = sum(c["host_syncs"] for c in card if "host_syncs" in c)
+    assert (bytes_up, waits) == ((96 * N + 192, 9) if commits == 1 else
+                                 (32 * N, 4))
 
 
 def test_commit_counts_nothing_on_the_cpu(commit):
-    """No copy and no wait on the CPU: the one count is msm_scalars' slow
-    scalars, none for canonical coefficients."""
+    """No copy and no wait on the CPU: the counts are msm_scalars' slow
+    scalars, none for canonical coefficients, and msm_basis' basis_cached,
+    0 on the commit that fills the cache."""
     _, _, log = commit()
-    assert all(s.counts == {} for s in log if s.name != "msm_scalars")
+    assert all(s.counts == {} for s in log
+               if s.name not in ("msm_scalars", "msm_basis"))
     assert [s.counts for s in log if s.name == "msm_scalars"] == [
         {"scalars_slow": 0}]
+    assert [s.counts for s in log if s.name == "msm_basis"] == [
+        {"basis_cached": 0}]
 
 
 # -- the readers

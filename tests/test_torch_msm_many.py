@@ -90,9 +90,12 @@ def test_a_batch_of_five_uploads_its_basis_once(params, device_path,
     real = PD.pack_affine
 
     def counted(*a, **kw):
-        uploads.append(kw.get("n"))
-        return real(*a, **kw)
+        pts = real(*a, **kw)
+        uploads.append(pts[0].shape[1])
+        return pts
     monkeypatch.setattr(PD, "pack_affine", counted)
+    # a new packed basis, with no device words yet
+    monkeypatch.delitem(params.__dict__, "_g_lagrange_packed", raising=False)
     cols = [column(kind, 2) for kind in
             ("bits", "16-bit", "uniform", "all-zero", "blinded")]
     got = params.commit_lagrange_many([form(v, how) for v in cols])
