@@ -5,8 +5,9 @@ msm() sends an MSM of fewer than HOST_THRESHOLD points to the native host
 Pippenger (native/fieldops.c) and a larger one to the device Pippenger
 msm_device, exactly as the reference does.  msm_multi, the prover's batch
 of commitments, sends its non-indexed jobs of HOST_THRESHOLD points or more
-to msm_device_many (the jobs that share a basis in one call, then
-msm_device's steps a column) and the rest to one native call.
+to msm_device_many (the jobs that share a basis in one call) and the rest
+to one native call.  msm_device is msm_device_many of one column, so a
+commit and a batch take the same steps.
 
 A native packed basis (packed_basis, fixed for its owner's life) is
 uploaded, checked and cut into K5's words once per device, on the first MSM
@@ -42,13 +43,14 @@ from ..utils.profiling import profiler
 # Same threshold as the reference: below it the host Pippenger is used.
 HOST_THRESHOLD = 1 << 20
 
-# Window bits of the device MSM from HOST_THRESHOLD points, chosen on the
-# card at 2^20 points (PERF.md, K5/K6 by window size; larger n unmeasured):
+# Window bits of the device MSM from 2^20 points, the size they were chosen
+# at on the card (PERF.md, K5/K6 by window size; larger n unmeasured):
 # K5 + K6 took 4.86 ms at 15 against 5.11 at the reference's 14 and 5.18 at
 # 16 (NVIDIA H100 80GB HBM3, 700 W, uniform scalars, one call): 14 has 9%
 # more live digits for K5, 16 twice the buckets for K6.  The chunked K5 no
 # longer slows down at 14, where the top window puts every point in 4
-# buckets (within 1.07x of its time at 15).
+# buckets (within 1.07x of its time at 15).  Below 2^20 points the
+# reference's rule holds, wherever HOST_THRESHOLD lies.
 DEVICE_WINDOW_BITS = 15
 
 # csrc/msm.cu's constants of the same names (a test holds them equal)
@@ -124,9 +126,9 @@ def pick_window_bits_v2(n: int) -> int:
 
 
 def pick_window_bits(n: int) -> int:
-    """The device MSM's window size: the reference's rule below
-    HOST_THRESHOLD points, DEVICE_WINDOW_BITS from there."""
-    if n >= HOST_THRESHOLD:
+    """The device MSM's window size: the reference's rule below 2^20
+    points, DEVICE_WINDOW_BITS from there."""
+    if n >= 1 << 20:
         return DEVICE_WINDOW_BITS
     return pick_window_bits_v2(n)
 
@@ -480,38 +482,10 @@ def msm_device(scalars: Sequence[int], points, c: Optional[int] = None,
                packed=None, device="cuda") -> CH.G1Affine:
     """Pippenger MSM on `device` (the card unless the caller asks for the
     CPU): sum_i scalars[i] * points[i] (scalars reduced mod r) as a host
-    affine point (None for the identity).  points: host affine list;
-    packed: a native basis (native_loader.pack_points_affine) covering the
-    points, read in its place.  c: window bits, by default
-    pick_window_bits(n).
-
-    Each step is a profiler phase, timed on the host (a phase around a
-    launch times the launch, not the kernel): msm_scalars, msm_digits,
-    msm_basis, msm_layout, msm_bucket_sums, msm_window_reduce, msm_fold.
-    msm_scalars counts `scalars_slow`, the scalars that were not exact
-    ints in [0, r) and so were reduced in Python (scalar_words.fr_words).
-    msm_basis takes K5's words of the points from _upload_basis: a packed
-    basis is uploaded and cut into them on the first MSM over it on
-    `device` and read from the cache afterwards (`basis_cached` 0, then
-    1); a host list is uploaded every call."""
-    from ..scalar_words import fr_words
-    dev = torch.device(device)
-    torch.empty(0, device=dev)       # no card: torch's CUDA error, here
-    n = len(scalars)
-    c = c or pick_window_bits(n)
-    with profiler.phase("msm_scalars"):
-        buf, slow = fr_words(scalars)
-        profiler.count("scalars_slow", slow)
-    with profiler.phase("msm_digits"):
-        digits = _scalars_to_digits(buf, c, dev)
-        del buf
-    with profiler.phase("msm_basis"):
-        words = _upload_basis(points, packed, n, dev)
-    with profiler.phase("msm_layout"):
-        order, starts = bucket_layout(digits, c)
-    with profiler.phase("msm_bucket_sums"):
-        buckets = msm_bucket_sums(words, order, starts)
-    return _reduce_and_fold(buckets, c)
+    affine point (None for the identity); msm_device_many of one column,
+    whose docstring gives the arguments, steps, spans and counters."""
+    return msm_device_many([scalars], packed=packed, points=points, c=c,
+                           device=device)[0]
 
 
 _BASIS_LOCK = threading.Lock()      # one fill of a basis a device
@@ -557,36 +531,36 @@ def _device_key(dev: torch.device) -> str:
     return str(dev)
 
 
-def _reduce_and_fold(buckets: PD.PointArray, c: int) -> CH.G1Affine:
-    """msm_window_reduce (K6), then the host fold of the window sums."""
-    with profiler.phase("msm_window_reduce"):
-        sums = msm_window_reduce(buckets)
-    with profiler.phase("msm_fold"):
-        return _fold_windows(sums, c)
-
-
 def msm_device_many(columns, packed=None, points=None, c: Optional[int] = None,
                     device="cuda") -> list:
-    """Pippenger MSMs of many scalar columns over one basis on `device`: per
-    column sum_i column[i] * basis[i], a host affine point (None for the
-    identity), equal to msm_device's for that column.  A column is an (m, 4)
-    little-endian u64 buffer (native_loader.fr_buf's layout, the prover's
-    columns) or a sequence of ints (packed by scalar_words.fr_words); a
-    buffer's words go to digits as they are (every basis point has order r,
-    so words of s + r give the point of s).  packed: a native basis
+    """Pippenger MSMs of many scalar columns over one basis on `device` (the
+    card unless the caller asks for the CPU): per column sum_i column[i] *
+    basis[i], a host affine point (None for the identity).  A column is an
+    (m, 4) little-endian u64 buffer (native_loader.fr_buf's layout, the
+    prover's columns) or a sequence of ints (reduced mod r); a buffer's
+    words go to digits as they are (every basis point has order r, so words
+    of s + r give the point of s).  packed: a native basis
     (native_loader.pack_points_affine) covering the longest column, read in
     place of points, the host affine list.  c: window bits, by default
     pick_window_bits of each column's length.
 
     One profiler phase msm_device_many around the batch, counting
-    msm_columns.  msm_basis takes K5's words of the basis once a batch
-    (_upload_basis: a packed basis is uploaded and cut into them once per
-    device, then read from the cache; a host list once a batch); then each
-    column takes msm_device's steps
-    (msm_scalars for a column of ints, msm_digits, msm_layout,
-    msm_bucket_sums, msm_window_reduce, msm_fold).  While the profiler is
-    on, msm_layout counts msm_nonzero_digits, the nonzero window digits K5
-    adds (one more host wait on a card)."""
+    msm_columns; under it a phase a step, timed on the host (a phase around
+    a launch times the launch, not the kernel):
+      msm_basis, once a batch: K5's words of the basis (_upload_basis: a
+        packed basis is uploaded and cut into them once per device, then
+        read from the cache, counting basis_cached 0, then 1; a host list
+        is uploaded every batch);
+    then per column:
+      msm_scalars, for a column of ints: its canonical words
+        (scalar_words.fr_words), counting scalars_slow, the scalars that
+        were not exact ints in [0, r) and so were reduced in Python;
+      msm_digits: the c-bit window digits (_scalars_to_digits);
+      msm_layout: bucket_layout; while the profiler is on it counts
+        msm_nonzero_digits, the nonzero window digits K5 adds (one more
+        host wait on a card);
+      msm_bucket_sums (K5), msm_window_reduce (K6), and msm_fold, the
+        host fold of the window sums."""
     dev = torch.device(device)
     torch.empty(0, device=dev)       # no card: torch's CUDA error, here
     for col in columns:
@@ -624,7 +598,10 @@ def msm_device_many(columns, packed=None, points=None, c: Optional[int] = None,
             del digits
             with profiler.phase("msm_bucket_sums"):
                 buckets = msm_bucket_sums(words[:m], order, starts)
-            out[j] = _reduce_and_fold(buckets, cj)
+            with profiler.phase("msm_window_reduce"):
+                sums = msm_window_reduce(buckets)
+            with profiler.phase("msm_fold"):
+                out[j] = _fold_windows(sums, cj)
     return out
 
 

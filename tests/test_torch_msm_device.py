@@ -47,7 +47,7 @@ def _edge_case(n=64, seed=7):
     return sc, pts
 
 
-@pytest.mark.parametrize("c", [4, 8, None])
+@pytest.mark.parametrize("c", [4, 8, 10, None])
 def test_plain_device_msm_matches_the_host_msms(c):
     sc, pts = _edge_case()
     got = M.msm_device(sc, pts, c=c, device="cpu")
@@ -99,20 +99,26 @@ def test_affine_words_round_trip():
         M.affine_words(doubled)
 
 
-def test_window_bits_rule():
+def test_window_bits_rule(monkeypatch):
     """Below 2^20 points (HOST_THRESHOLD, where msm() starts to send MSMs
     to the card) the reference's rule; from there the card's measured
     choice, the window size with the least K5 + K6 time at 2^20 points,
-    which is not the reference's 14."""
+    which is not the reference's 14.  The rule follows the MSM's size, not
+    HOST_THRESHOLD: lowered, it moves MSMs to the card but not their window
+    bits."""
     assert M.HOST_THRESHOLD == 1 << 20
     for n in (1, 64, 5000, 1 << 16, M.HOST_THRESHOLD - 1):
         assert M.pick_window_bits(n) == RM.pick_window_bits_v2(n)
     c = M.pick_window_bits(M.HOST_THRESHOLD)
     assert c == M.DEVICE_WINDOW_BITS and 14 < c <= 16
     assert RM.pick_window_bits_v2(M.HOST_THRESHOLD) == 14
+    monkeypatch.setattr(M, "HOST_THRESHOLD", 16)
+    assert M.pick_window_bits(32) == RM.pick_window_bits_v2(32) == 8
+    assert M.pick_window_bits(1 << 20) == M.DEVICE_WINDOW_BITS == 15
     with pytest.raises(ValueError, match="power of two"):
         M.k6_shape(48)
     assert M.k6_shape(1 << 18) == (16, 128, 128)
+    assert M.k6_shape(1 << 10) == (16, 32, 2)     # c = 10: a two-block tree
     with pytest.raises(ValueError, match="above 18"):
         M.k6_shape(1 << 19)
 
