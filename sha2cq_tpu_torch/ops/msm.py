@@ -21,7 +21,8 @@ The device Pippenger, per window of c scalar bits:
                               the points in affine_words' layout)
   sum_{b >= 1} b * B_b       (msm_window_reduce: kernel K6 on a card)
 then the 2^c-weighted fold of the nw window sums on the host, as in the
-reference.  A CPU tensor takes the plain versions (bucket_sums_plain,
+reference (_fold_windows: one read-back, a Jacobian fold, one inversion).
+A CPU tensor takes the plain versions (bucket_sums_plain,
 window_reduce_plain, built on curves/device.py), which add in the kernels'
 order, so a kernel's output equals its plain version's limb for limb.
 """
@@ -468,14 +469,19 @@ def msm_window_reduce(buckets: PD.PointArray) -> PD.PointArray:
 
 def _fold_windows(sums: PD.PointArray, c: int) -> CH.G1Affine:
     """The reference's host fold of the nw window sums (Jacobian, Montgomery
-    limbs): from the top window down, total = 2^c * total + window."""
-    total = None
-    for win in reversed(PD.unpack_jacobian(sums)):
-        if total is not None:
-            for _ in range(c):
-                total = CH.g1_add(total, total)
-        total = CH.g1_add(total, win)
-    return total
+    limbs) into one affine point (None for the identity): one read-back of
+    X, Y and Z together (one host wait on a card), then, from the top window
+    down, total = 2^c * total + window in Jacobian coordinates (a window
+    whose Z is 0 is the identity, as on the device), and one inversion at
+    the end."""
+    xyz = D.unpack(torch.stack(sums, dim=1), FQ)        # X's, Y's, then Z's
+    nw = len(xyz) // 3
+    total = CH.JAC_IDENTITY
+    for w in range(nw - 1, -1, -1):
+        for _ in range(c):
+            total = CH.jac_double(total)
+        total = CH.jac_add(total, tuple(xyz[w::nw]))
+    return CH.jac_to_affine(total)
 
 
 def msm_device(scalars: Sequence[int], points, c: Optional[int] = None,
@@ -560,7 +566,9 @@ def msm_device_many(columns, packed=None, points=None, c: Optional[int] = None,
         msm_nonzero_digits, the nonzero window digits K5 adds (one more
         host wait on a card);
       msm_bucket_sums (K5), msm_window_reduce (K6), and msm_fold, the
-        host fold of the window sums."""
+        host fold of the window sums (_fold_windows: one read-back of X,
+        Y and Z, counted as one host wait on a card, a Jacobian fold and
+        one inversion)."""
     dev = torch.device(device)
     torch.empty(0, device=dev)       # no card: torch's CUDA error, here
     for col in columns:

@@ -82,14 +82,14 @@ def test_commit_counts_copies_and_waits_as_on_a_card(commit, monkeypatch,
                                                       commits):
     """With every tensor taken for a card's: the digits' words copied up
     (32 bytes a point, one wait), the layout's read of the nonzero digits
-    while the profiler is on (one wait) and the fold's three read-backs of
-    X, Y and Z; the card's K5 and K6 copy nothing.  The first commit over
-    the basis also fills the device basis cache in msm_basis: the basis (64
-    bytes a point, and the Montgomery one and R^2, 64 bytes each: three
-    waits) and K5's input check (its Montgomery one and its answer: two
-    waits), so it counts 96 N + 192 bytes and 10 waits.  A later commit
-    finds the words in the cache (basis_cached 1): 32 N bytes and 5
-    waits."""
+    while the profiler is on (one wait) and the fold's one read-back of X,
+    Y and Z together (one wait); the card's K5 and K6 copy nothing.  The
+    first commit over the basis also fills the device basis cache in
+    msm_basis: the basis (64 bytes a point, and the Montgomery one and
+    R^2, 64 bytes each: three waits) and K5's input check (its Montgomery
+    one and its answer: two waits), so it counts 96 N + 192 bytes and 8
+    waits.  A later commit finds the words in the cache (basis_cached 1):
+    32 N bytes and 3 waits."""
     monkeypatch.setattr(D, "on_card", lambda t: True)
     point, want, log = commit(commits)
     assert point == want
@@ -100,7 +100,7 @@ def test_commit_counts_copies_and_waits_as_on_a_card(commit, monkeypatch,
                                    "host_syncs": 5, "basis_cached": 0}
     else:
         assert by["msm_basis"] == {"basis_cached": 1}
-    assert by["msm_fold"] == {"host_syncs": 3}
+    assert by["msm_fold"] == {"host_syncs": 1}
     assert by["msm_layout"] == {"host_syncs": 1, "msm_nonzero_digits": DIGITS}
     assert by["msm_device_many"] == {"msm_columns": 1}
     assert by["kzg_commit"] == {}
@@ -109,8 +109,8 @@ def test_commit_counts_copies_and_waits_as_on_a_card(commit, monkeypatch,
             by["msm_fold"]]
     bytes_up = sum(c.get("h2d_bytes", 0) for c in card)
     waits = sum(c["host_syncs"] for c in card if "host_syncs" in c)
-    assert (bytes_up, waits) == ((96 * N + 192, 10) if commits == 1 else
-                                 (32 * N, 5))
+    assert (bytes_up, waits) == ((96 * N + 192, 8) if commits == 1 else
+                                 (32 * N, 3))
 
 
 def test_commit_counts_nothing_on_the_cpu(commit):
