@@ -33,7 +33,15 @@ catches an error and goes on):
    both build times; K5 (msm_bucket_sums) and K6 (msm_window_reduce) at the
    device MSM's bucket shape (2^12 points, the path's window bits), each
    against its plain version on the same inputs: affine equality of every
-   bucket / window sum on the card, and their limbs bit for bit;
+   bucket / window sum on the card, and their limbs bit for bit; and the
+   CQ tables' cached quotients (cq_fk_phase): the device FK route equal to
+   the host route (native FK) on a 2^10-row column, a sigma half-table of
+   circuit32 (5 columns of 2^16 rows) through StaticTableValues.many cold
+   and warm (the warm run's K7 and K8 launches), then K7 (g1_scalar_mul)
+   over (5, 2^17) against the native host batch product, and K8 (g1_ntt)
+   at 2^17 and 2^16 points over 5 columns, column 0 against the native
+   host group NTT and every column brought back by the inverse transform;
+   affine points bit for bit, with ms, bound and share;
 3. SHA-256 circuit32 / SCHEME8 at k=9, one block: under each h route
    (butterfly -- the auto route at k=9 --, monolithic digit-matmul,
    coset-streamed) the proof with h on the card is byte-identical to the
@@ -144,6 +152,11 @@ INT_MADS_PER_S = 67e12 / 4
 MONT_MADS = 264      # one 8x32-bit Montgomery product: 128 lo/hi pairs + 8 m
 MIXED_ADD_PRODUCTS = 11      # a mixed Jacobian addition, 7M + 4S (K5)
 JAC_ADD_PRODUCTS = 16        # a Jacobian addition, 12M + 4S (K6)
+DBL_PRODUCTS = 7             # a Jacobian doubling, 2M + 5S (K7, K8)
+# phase 2f: one sigma half-table of circuit32 (5 columns of 2^16 rows) over
+# a TableSRS from the secret of cardbench/configs/sha256_w32_cq_tables.json
+CQ_ROWS, CQ_COLUMNS = 1 << 16, 5
+CQ_SECRET = 0x5BE0CD191F83D9AB9B05688C510E527FA54FF53A3C6EF372BB67AE856A09E667
 ROUTES = {                       # create_proof flags forcing each h route
     "butterfly": {"h_mxu": False},
     "monolithic": {"h_mxu": True, "h_cosets": False},
@@ -164,6 +177,11 @@ KERNELS = {                      # name: (source, the TPU-side code it replaces)
                           "sha2cq_tpu/ops/msm.py:257"),
     "mont_mul_wide": ("sha2cq_tpu_torch/csrc/mont_mul.cu",
                       "sha2cq_tpu/fields/device.py:332"),
+    # K7 and K8 replace host code: the JAX package's FK is native C
+    "g1_scalar_mul": ("sha2cq_tpu_torch/csrc/fk.cu",
+                      "sha2cq_tpu/plonk/static_tables.py:244"),
+    "g1_ntt": ("sha2cq_tpu_torch/csrc/fk.cu",
+               "sha2cq_tpu/plonk/static_tables.py:245"),
 }
 STAGING_MARKS = ("create_proof/h_stage_advice", "create_proof/h_stage_f",
                  "h_pack_inputs", "h_device")
@@ -277,6 +295,149 @@ def same_points(a, b) -> bool:
               D.mont_mul(b[1], D.mont_mul(z1s, a[2], D.FQ), D.FQ))
     ia, ib = D.is_zero(a[2]), D.is_zero(b[2])
     return bool(((ia & ib) | (~ia & ~ib & ex & ey)).all())
+
+
+def scalar_mul_products(s: int) -> int:
+    """Montgomery products of K7's product by s (csrc/fk.cu): the table of
+    1..15 P (7 doublings, 7 additions), 252 doublings and an addition for
+    each nonzero 4-bit window of s."""
+    nonzero = sum(d != "0" for d in f"{s:064x}")
+    return (7 + 252) * DBL_PRODUCTS + (7 + nonzero) * JAC_ADD_PRODUCTS
+
+
+def ntt_work(m: int, cols: int, twiddles: list):
+    """(bytes, multiply-adds) of K8's group NTT of m points over cols
+    columns: each stage's butterflies read and write two points and read a
+    twiddle, and make two additions and a product by their twiddle where it
+    is not w^0 (twiddles: w^0 .. w^{m/2 - 1})."""
+    k = m.bit_length() - 1
+    products = sum(
+        (m // 2 >> s) * (2 * JAC_ADD_PRODUCTS + (
+            scalar_mul_products(twiddles[lo << (k - 1 - s)]) if lo else 0))
+        for s in range(k) for lo in range(1 << s))
+    return k * cols * (m // 2) * (4 * 96 + 32), cols * products * MONT_MADS
+
+
+def jac_words_on(words, shape, dev):
+    """A point batch on dev (Montgomery limbs) from the native layout:
+    (m, 12) u64 words, canonical x, y, z of four words each."""
+    import numpy as np
+    import torch
+    from sha2cq_tpu_torch.fields import device as D
+    t = torch.from_numpy(np.ascontiguousarray(words).view(np.int16)).to(dev)
+    limbs = t.t().to(D.LIMB) & D.MASK                       # (48, m)
+    return tuple(D.to_mont(limbs[16 * i:16 * (i + 1)].contiguous(), D.FQ)
+                 .reshape(16, *shape) for i in range(3))
+
+
+def cq_fk_phase(dev, record) -> dict:
+    """Phase 2f: the CQ tables' cached quotients on the card (plonk/
+    static_tables.fk_cached_quotients).  The route against the host route
+    (native FK) on a column of DEVICE_MIN_ROWS rows, point for point; one
+    sigma half-table of circuit32 (CQ_COLUMNS columns of CQ_ROWS rows)
+    through StaticTableValues.many cold (the B_hat fill) and warm; then at
+    the route's shapes, on the warm run's B_hat: K7's t_hat * B_hat over
+    (CQ_COLUMNS, 2 CQ_ROWS) with random scalars against the native host
+    batch product on the same inputs, and K8's group NTTs of 2 CQ_ROWS and
+    CQ_ROWS points over CQ_COLUMNS columns, column 0 against the native
+    host group NTT and every column brought back by the inverse transform
+    and 1/m.  Affine points bit for bit.  Returns the warm table's
+    launches (counts set to 0 just before it)."""
+    import numpy as np
+    import torch
+    from sha2cq_tpu_torch import native_loader as NL
+    from sha2cq_tpu_torch.curves import device as CD
+    from sha2cq_tpu_torch.fields.host import FR_MOD
+    from sha2cq_tpu_torch.models.sha import tables32
+    from sha2cq_tpu_torch.ops import cuda_field as CF
+    from sha2cq_tpu_torch.plonk import static_tables as ST
+    from sha2cq_tpu_torch.poly.kzg import params as KP
+    n, cols = CQ_ROWS, CQ_COLUMNS
+    n2 = 2 * n
+    rng = random.Random(SEED + 2)
+    t0 = time.perf_counter()
+    srs = KP._g1_powers_of_s(CQ_SECRET % FR_MOD, n)
+    srs_s = time.perf_counter() - t0
+
+    vals = [rng.randrange(1 << 16) for _ in range(ST.DEVICE_MIN_ROWS)]
+    card = ST.StaticTableValues(vals, srs).qs
+    route = ST.fk_device
+    ST.fk_device = lambda size: None
+    try:
+        host = ST.StaticTableValues(vals, srs).qs
+    finally:
+        ST.fk_device = route
+    say("cq_route", rows=len(vals), equal_to_host_fk=card == host,
+        srs_points=n, srs_s=srs_s)
+    if card != host:
+        fail("the device FK route differs from the host route (native FK)")
+
+    columns = list(tables32.sigma_half_columns(
+        tables32.SCHEME32, "bs0", hi=True).values())
+    ST._device_srs_cache.clear()
+    runs = {}
+    for run in ("cold", "warm"):
+        CF.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ST.StaticTableValues.many(columns, srs)
+        runs[run] = dict(seconds=time.perf_counter() - t0,
+                         launches={k: v for k, v in CF.launches.items() if v})
+    launches = dict(CF.launches)
+    say("cq_table", table="bs0h", rows=n, columns=len(columns), **runs)
+    if launches["g1_scalar_mul"] != 2 or launches["g1_ntt"] != 2:
+        fail(f"a warm table launched K7 {launches['g1_scalar_mul']} and K8 "
+             f"{launches['g1_ntt']} times, not 2 and 2")
+
+    # K7: t_hat * B_hat, the products of one table
+    B = ST._device_srs_ntt(srs, n, dev)
+    ints = [rng.randrange(FR_MOD) for _ in range(cols * n2)]
+    ints[:3] = [0, 1, FR_MOD - 1]
+    sc = CD.raw_limbs(ints).reshape(16, cols, n2).to(dev)
+    out = CD.batch_scalar_mul(B, sc)
+    words = NL.np_jac_from_tuples(CD._host_points(B))
+    sw = NL._np_u64_limbs(ints, 4).reshape(cols, n2, 4)
+    t0 = time.perf_counter()
+    ref = np.concatenate([NL.native_batch_scalar_mul_np(words, sw[c])
+                          for c in range(cols)])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    mads = sum(scalar_mul_products(v) for v in ints) * MONT_MADS
+    record("g1_scalar_mul", CD.to_affine(out),
+           CD.to_affine(jac_words_on(ref, (cols, n2), dev)),
+           cuda_time_ms(lambda: CD.batch_scalar_mul(B, sc), 3), host_ms,
+           cols * n2 * (96 + 32 + 96), mads, shape=[cols, n2],
+           plain="the native host batch product (OpenMP)", affine_equal=True)
+    del B, sc, words, sw, ref
+
+    # K8: the group NTTs of 2N and N points over the table's columns
+    for m in (n2, n):
+        k = m.bit_length() - 1
+        omega = ST._omega_for_k(k)
+        pts = tuple(c[..., :m].contiguous() for c in out)
+        got = CD.group_ntt(pts, omega)
+        w0 = NL.np_jac_from_tuples(CD._host_points(tuple(c[:, 0] for c in pts)))
+        t0 = time.perf_counter()
+        NL.native_group_ntt_np(w0, ST._np_twiddles(omega, m), k)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        back = CD.batch_scalar_mul(
+            CD.group_ntt(got, pow(omega, FR_MOD - 2, FR_MOD)),
+            CD.raw_limbs([pow(m, FR_MOD - 2, FR_MOD)]).to(dev))
+        if not same_points(back, pts):
+            fail(f"K8 at {m} points: the inverse transform does not bring "
+                 "every column back")
+        twiddles = [1] * (m // 2)
+        for i in range(1, m // 2):
+            twiddles[i] = twiddles[i - 1] * omega % FR_MOD
+        record("g1_ntt", CD.to_affine(tuple(c[:, 0] for c in got)),
+               CD.to_affine(jac_words_on(w0, (m,), dev)),
+               cuda_time_ms(lambda: CD.group_ntt(pts, omega), 3), None,
+               *ntt_work(m, cols, twiddles), shape=[cols, m],
+               plain="column 0 against the native host group NTT",
+               host_native_ms_one_column=host_ms, round_trip_equal=True)
+        del pts, got, back, w0
+    del out
+    torch.cuda.empty_cache()
+    return launches
 
 
 def load_parent_kernels(parent: str):
@@ -859,6 +1020,11 @@ def main() -> None:
         fail("K5 + K6 at 2^12 points disagree with the native host MSM")
     del pts, words, digits, order, starts, buckets, sums, ref
     torch.cuda.empty_cache()
+
+    # ---- phase 2f: K7 and K8 at the CQ tables' shapes --------------------
+    fk_launches = cq_fk_phase(dev, record)
+    for name in ("g1_scalar_mul", "g1_ntt"):
+        kernels[name]["launches"] = fk_launches[name]
 
     # ---- phase 3: k=9 proofs on the card == host-path proof --------------
     t0 = time.perf_counter()

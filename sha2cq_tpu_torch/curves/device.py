@@ -14,13 +14,15 @@ compute (csrc/msm.cu, ops/msm.py).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..fields import device as D
-from ..fields.device import FQ, LIMB, MASK, NLIMB
+from ..fields.device import FQ, FR, LIMB, MASK, NLIMB
+from ..utils.profiling import profiler
 
 # A point batch: (X, Y, Z) Jacobian, each (16, *batch); Z=0 encodes identity.
 PointArray = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -174,3 +176,172 @@ def unpack_jacobian(p: PointArray):
         zi2 = zi * zi % FQ_MOD
         out.append((x * zi2 % FQ_MOD, y * zi2 * zi % FQ_MOD))
     return out
+
+
+# ----------- scalar products and the group NTT (kernels K7, K8) -------------
+#
+# The CQ tables' cached quotients (plonk/static_tables.fk_cached_quotients)
+# are two group NTTs and two rows of scalar products over G1.  A CUDA
+# tensor launches K7 / K8 (csrc/fk.cu); a CPU tensor runs the host's own
+# versions on host integers (curves/host.jac_mul and the host FK's group
+# NTT): a limb-tensor version would run some 1,700 batched Montgomery
+# rounds a scalar product, seconds each even at test sizes.
+
+
+def limb_ints(a: torch.Tensor) -> list:
+    """(16, *batch) limbs -> the integers they spell, flattened batch, not
+    reduced: cut to 16 bits and laid out element by element where the
+    tensor lives, then one copy (a card's tensor: one host wait, counted)."""
+    t = a.reshape(NLIMB, -1).to(torch.int16).t().contiguous()
+    if D.on_card(t):
+        profiler.count("host_syncs")
+    raw = memoryview(t.cpu().numpy().tobytes())
+    fb = int.from_bytes
+    return [fb(raw[i:i + 32], "little") for i in range(0, len(raw), 32)]
+
+
+def raw_limbs(values) -> torch.Tensor:
+    """Integers below 2^256 -> (16, n) int32 limbs, not reduced (a scalar
+    row for batch_scalar_mul)."""
+    raw = b"".join(v.to_bytes(32, "little") for v in values)
+    a = np.frombuffer(raw, dtype="<u2").reshape(len(values), NLIMB).T
+    return torch.from_numpy(a.astype(np.int32))
+
+
+def _host_points(p: PointArray) -> list:
+    """A point batch -> host Jacobian tuples (ints, out of Montgomery form)."""
+    from .host import JAC_IDENTITY
+    rinv = pow(FQ.r, FQ.p - 2, FQ.p)
+    out = []
+    for x, y, z in zip(*(limb_ints(c) for c in p)):
+        out.append(JAC_IDENTITY if z == 0 else
+                   (x * rinv % FQ.p, y * rinv % FQ.p, z * rinv % FQ.p))
+    return out
+
+
+def _device_points(points: list, shape, device) -> PointArray:
+    return tuple(D.pack([pt[i] for pt in points], FQ, device=device)
+                 .reshape(NLIMB, *shape) for i in range(3))
+
+
+def _one_device(op: str, *tensors) -> torch.device:
+    """The device every tensor lives on: a CPU or a CUDA one, else raises."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{op}: operands on different devices "
+                         f"({sorted({str(t.device) for t in tensors})})")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: no route for tensors on {dev}")
+    return dev
+
+
+def batch_scalar_mul(points: PointArray, scalars: torch.Tensor) -> PointArray:
+    """out[e] = s[e mod n_sc] * P[e mod n_pts] over the larger of the two
+    batches (the smaller one's count divides it, and its shape is the
+    other's trailing axes): scalars (16, ...) canonical limbs below 2^256,
+    points (16, ...) a coordinate, on the scalars' device.  CUDA tensors
+    launch K7, CPU tensors run curves/host.jac_mul point by point."""
+    from ..ops import cuda_field as CF
+    from ..ops import kernels as K
+    n_pts, n_sc = points[0][0].numel(), scalars[0].numel()
+    shape = max(points[0].shape[1:], scalars.shape[1:],
+                key=lambda s: (s.numel(), len(s)))
+    n = max(n_pts, n_sc)
+    if n_pts == 0 or n_sc == 0 or n % n_pts or n % n_sc:
+        raise ValueError(f"batch_scalar_mul: {n_pts} points against {n_sc} "
+                         "scalars")
+    dev = _one_device("batch_scalar_mul", *points, scalars)
+    if dev.type == "cpu":
+        from .host import jac_mul
+        pts, ss = _host_points(points), limb_ints(scalars)
+        out = [jac_mul(pts[e % n_pts], ss[e % n_sc]) for e in range(n)]
+        return _device_points(out, shape, dev)
+    px, py, pz = (c.contiguous() for c in points)
+    sc = CF.as_limbs32(scalars).contiguous()
+    out = tuple(torch.empty((NLIMB, *shape), dtype=LIMB, device=sc.device)
+                for _ in range(3))
+    p8, n0 = K.field_words(FQ)
+    CF.count_launch("g1_scalar_mul")
+    K.check(K.get_lib().k7_g1_scalar_mul(
+        px.data_ptr(), py.data_ptr(), pz.data_ptr(), n_pts, sc.data_ptr(),
+        n_sc, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), n, p8,
+        n0, K.one_words(FQ), K.stream_ptr(sc)), "k7_g1_scalar_mul")
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _group_twiddles(omega: int, k: int, device: str) -> torch.Tensor:
+    from ..fields.host import FR_MOD
+    tw = [1] * max((1 << k) // 2, 1)
+    for i in range(1, len(tw)):
+        tw[i] = tw[i - 1] * omega % FR_MOD
+    return D.pack(tw, FR, mont=False, device=device)
+
+
+def group_twiddles(omega: int, k: int, device) -> torch.Tensor:
+    """(16, 2^(k-1)) canonical limbs of omega^i, K8's twiddles (built once
+    per table and device; callers must not write to it)."""
+    return _group_twiddles(omega, k, D.device_key(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _bitrev(k: int) -> np.ndarray:
+    idx = np.arange(1 << k, dtype=np.int64)
+    rev = np.zeros_like(idx)
+    for b in range(k):
+        rev |= ((idx >> b) & 1) << (k - 1 - b)
+    return rev
+
+
+def group_ntt(points: PointArray, omega: int) -> PointArray:
+    """out_k = sum_j omega^{jk} P_j along the last axis (m = 2^k points) of
+    a point batch (16, ..., m), omega an m-th root of unity of Fr.  A CUDA
+    tensor: the bit-reversal gathered by torch, then K8 in place, one
+    launch a stage; CPU tensors: the host FK's group NTT column by column
+    (plonk/static_tables._group_ntt_any).  Counts group_ntt_points (the
+    points transformed)."""
+    from ..ops import cuda_field as CF
+    from ..ops import kernels as K
+    m = points[0].shape[-1]
+    k = m.bit_length() - 1
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"group_ntt: {m} points is not a power of two")
+    dev = _one_device("group_ntt", *points)
+    profiler.count("group_ntt_points", points[0][0].numel())
+    if dev.type == "cpu":
+        from ..plonk.static_tables import _group_ntt_any
+        flat = _host_points(points)
+        out = [q for c0 in range(0, len(flat), m)
+               for q in _group_ntt_any(flat[c0:c0 + m], omega, k)]
+        return _device_points(out, points[0].shape[1:], dev)
+    rev = torch.from_numpy(_bitrev(k)).to(dev)
+    x, y, z = (c.index_select(-1, rev).contiguous() for c in points)
+    tw = group_twiddles(omega, k, dev)
+    p8, n0 = K.field_words(FQ)
+    CF.count_launch("g1_ntt")
+    K.check(K.get_lib().k8_g1_ntt(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), tw.data_ptr(),
+        x[0].numel() >> k, k, p8, n0, K.one_words(FQ), K.stream_ptr(x)),
+        "k8_g1_ntt")
+    return (x, y, z)
+
+
+def to_affine(p: PointArray) -> torch.Tensor:
+    """A point batch -> (16, 2, n) canonical limbs of affine x and y,
+    flattened batch, made on the device (a Fermat inversion a point: K1 on
+    a card); an identity's x is 2^256 - 1, which no coordinate reaches."""
+    X, Y, Z = (c.reshape(NLIMB, -1) for c in p)
+    zi = D.inv(Z, FQ)
+    zi2 = D.mont_sq(zi, FQ)
+    x = D.from_mont(D.mont_mul(X, zi2, FQ), FQ)
+    y = D.from_mont(D.mont_mul(D.mont_mul(Y, zi2, FQ), zi, FQ), FQ)
+    x = torch.where(D.is_zero(Z), MASK, x)
+    return torch.stack([x, y], dim=1)
+
+
+def to_affine_host(p: PointArray) -> list:
+    """A point batch -> host affine points, flattened batch (None = the
+    identity): to_affine, then one copy of x and y."""
+    vals = limb_ints(to_affine(p))
+    n, none = len(vals) // 2, (1 << 256) - 1
+    return [None if a == none else (a, b) for a, b in zip(vals[:n], vals[n:])]

@@ -2,8 +2,12 @@
 TableSRS, all half/piece/limb table families, per-size configs.
 
 Same shape as setup.py but driven by tables32.build_all_columns; the whole
-preprocessed bundle is disk-cached (the 32-bit scheme is ~an hour of
-one-time native FK + G2 MSM work across ~52 table columns).
+preprocessed bundle is disk-cached.  Each table family's columns are
+preprocessed in one StaticTableValues.many call: FK on the card where one
+is present (plonk/static_tables.fk_cached_quotients), on the host
+otherwise (about 46 minutes of native FK for the 60 columns on an 8-core
+host).  Cache files are written as <path>.<pid>.tmp and renamed, so that
+two processes building one cache never write one temporary file.
 
 The port's own copy of sha2cq_tpu/models/sha/setup32.py.
 """
@@ -49,10 +53,21 @@ def _load_srs(srs_len: int, secret: int, cache: bool, progress: bool):
     if progress:
         print(f"  TableSRS ({srs_len}): {time.time() - t0:.1f}s", flush=True)
     if path:
-        with open(path + ".tmp", "wb") as f:
-            pickle.dump(srs, f, protocol=4)
-        os.replace(path + ".tmp", path)
+        _dump(srs, path)
     return srs
+
+
+def _write(data: bytes, path: str) -> None:
+    """`data` to `path` through a temporary file of this process."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def _dump(obj, path: str) -> None:
+    """pickle `obj` to `path` through a temporary file of this process."""
+    _write(pickle.dumps(obj, protocol=4), path)
 
 
 def build_sha256_setup(s: HalfScheme, circuit_n: int, secret: int,
@@ -89,6 +104,7 @@ def build_sha256_setup(s: HalfScheme, circuit_n: int, secret: int,
     sizes = set()
     for fam, columns in specs.items():
         static_tables[fam] = {}
+        todo = []
         for comp, values in columns.items():
             sizes.add(len(values))
             tpath = os.path.join(tdir, f"{fam}_{comp}.pkl") if tdir else None
@@ -97,29 +113,35 @@ def build_sha256_setup(s: HalfScheme, circuit_n: int, secret: int,
                     entry = pickle.load(f)
                 entry.committed.x_b0_bound = srs.g2[srs_len - 1 - (circuit_n - 2)]
                 static_tables[fam][comp] = entry
-                continue
-            if progress:
-                import time
-                t0 = time.time()
-            tv = StaticTableValues(values, srs.g1)
+            else:
+                todo.append((comp, tpath))
+        if not todo:
+            continue
+        if progress:
+            import time
+            t0 = time.time()
+        opened = StaticTableValues.many([columns[c] for c, _ in todo], srs.g1)
+        if progress:
+            t1 = time.time()
+        for (comp, tpath), tv in zip(todo, opened):
             committed = tv.commit(srs_len, srs.g2, circuit_n)
             entry = StaticTable(opened=tv, committed=committed)
             static_tables[fam][comp] = entry
             if tpath:
-                with open(tpath + ".tmp", "wb") as f:
-                    pickle.dump(entry, f, protocol=4)
-                os.replace(tpath + ".tmp", tpath)
-            if progress:
-                print(f"  table {fam}.{comp} ({len(values)} rows): "
-                      f"{time.time() - t0:.1f}s", flush=True)
+                _dump(entry, tpath)
+        if progress:
+            print(f"  table {fam} ({len(todo)} x {len(columns[todo[0][0]])} "
+                  f"rows): quotients {t1 - t0:.1f}s, commitments and cache "
+                  f"{time.time() - t1:.1f}s", flush=True)
+    # the families' columns in the generator's order, whatever was cached
+    static_tables = {fam: {c: static_tables[fam][c] for c in columns}
+                     for fam, columns in specs.items()}
 
     configs = {size: config_from_s(secret, size) for size in sizes}
     b0_g1_bound = srs.g1[srs_len - circuit_n + 1:]
     result = (static_tables, configs, b0_g1_bound, srs)
     if cache_path:
-        with open(cache_path + ".tmp", "wb") as f:
-            pickle.dump(result, f, protocol=4)
-        os.replace(cache_path + ".tmp", cache_path)
+        _dump(result, cache_path)
     return result
 
 
@@ -130,10 +152,7 @@ def save_setup_bundle(path: str, setup) -> None:
     pickles above).  The reference cannot ship this state at all: it drops
     static tables on key read (plonk.rs:161-163 TODO)."""
     from ...utils import keyio
-    data = keyio.write_table_bundle(*setup)
-    with open(path + ".tmp", "wb") as f:
-        f.write(data)
-    os.replace(path + ".tmp", path)
+    _write(keyio.write_table_bundle(*setup), path)
 
 
 def load_setup_bundle(path: str):

@@ -20,7 +20,8 @@ Three wrappers, each with its plain PyTorch version and a launch counter:
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  There is no shape gate: the kernels index every operand directly
 and mask the ragged edge.  (The h VM's kernel K3 has its wrapper in
-plonk/h_vm.py, the MSM's kernels K5 and K6 theirs in ops/msm.py; their
+plonk/h_vm.py, the MSM's kernels K5 and K6 theirs in ops/msm.py, the G1
+kernels K7 and K8 of the CQ tables' FK theirs in curves/device.py; their
 counters live here with the others.)
 """
 from __future__ import annotations
@@ -41,12 +42,12 @@ K2_TILE, K2_MINOR, K2_MAJOR, K2_SCALAR = range(4)   # csrc/planes_to_limbs.cu's 
 # Launch counts, one per kernel: incremented exactly where a wrapper calls
 # its kernel's C entry, once a call (count_launch).  Two entries launch
 # more than one CUDA kernel a call: K4's (one k4_pass a pass,
-# ops/ntt.k4_passes) and K6's (k6_partials_kernel, then
-# k6_combine_kernel).  shard_launches[i] counts the launches made while
+# ops/ntt.k4_passes), K6's (k6_partials_kernel, then
+# k6_combine_kernel) and K8's (one stage a launch).  shard_launches[i] counts the launches made while
 # mesh shard i's work runs (parallel/distributed.shards).
 launches = {"mont_mul": 0, "mont_mul_wide": 0, "planes_to_limbs_mul": 0,
             "h_vm_run": 0, "ntt_radix2": 0, "msm_bucket_sums": 0,
-            "msm_window_reduce": 0}
+            "msm_window_reduce": 0, "g1_scalar_mul": 0, "g1_ntt": 0}
 shard_launches: Dict[int, Dict[str, int]] = {}
 _shard = threading.local()
 

@@ -141,6 +141,12 @@ def _bind(lib):
     lib.k6_msm_window_reduce.argtypes = [vp, vp, vp, vp, vp, vp, vp, cl, cl,
                                          vp, ctypes.c_uint32, vp, vp]
     lib.k6_msm_window_reduce.restype = ci
+    lib.k7_g1_scalar_mul.argtypes = [vp, vp, vp, cl, vp, cl, vp, vp, vp, cl,
+                                     vp, ctypes.c_uint32, vp, vp]
+    lib.k7_g1_scalar_mul.restype = ci
+    lib.k8_g1_ntt.argtypes = [vp, vp, vp, vp, cl, cl, vp, ctypes.c_uint32,
+                              vp, vp]
+    lib.k8_g1_ntt.restype = ci
     return lib
 
 

@@ -423,9 +423,10 @@ def _opening_basis_from_window(window, n, tag):
     pts = CH.jac_batch_to_affine(out)
     try:
         os.makedirs(cache_dir, exist_ok=True)
-        with open(path + ".tmp", "wb") as f:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
             pickle.dump(pts, f, protocol=4)
-        os.replace(path + ".tmp", path)
+        os.replace(tmp, path)
     except Exception:
         pass
     return pts

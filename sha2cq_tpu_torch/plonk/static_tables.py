@@ -9,7 +9,12 @@ The reference computes qs with an O(N^2) per-root kate_division loop and
 flags "THIS SHOULD BE DONE WITH FK METHOD" (static_lookup.rs:107).  We
 implement both: the naive loop (oracle, small N) and the Feist-Khovratovich
 all-openings algorithm (O(N log N) group ops via two size-2N group NTTs),
-which is what makes 2^20+ tables preprocessable.
+which is what makes 2^20+ tables preprocessable.  FK runs on the card
+(`fk_cached_quotients`: K7 and K8, csrc/fk.cu) where CUDA is present and a
+column has DEVICE_MIN_ROWS rows or more, and on the host
+(`fk_all_quotient_commitments`, native OpenMP) otherwise; both give the
+same points.  `StaticTableValues.many` preprocesses one table's columns in
+one call, which shares the SRS side of FK between them.
 
 Note: the reference's `commit` derives the G2 table commitment from
 `value_index_mapping.keys()` — i.e. the *sorted* values — which only matches
@@ -21,16 +26,27 @@ The port's own copy of sha2cq_tpu/plonk/static_tables.py.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+import numpy as np
+import torch
+
+from ..curves import device as CD
 from ..curves import host as CH
+from ..fields import device as D
 from ..fields import host as H
 from ..ops import msm as M
 from ..ops import ntt as NTT
 from ..poly import arith as A
+from ..utils.profiling import profiler
 
 P = H.FR_MOD
+
+# The smallest column whose cached quotients go to the card when one is
+# present (fk_device).
+DEVICE_MIN_ROWS = 1 << 10
 
 
 @dataclass
@@ -56,16 +72,15 @@ class StaticTableValues:
     """Prover-side preprocessed table."""
 
     def __init__(self, values: List[int], srs_g1: List[CH.G1Affine], use_fk: bool = True):
-        size = len(values)
-        assert size & (size - 1) == 0, "table size must be a power of two"
-        self.size = size
-        self.values = [v % P for v in values]
-        # value -> index map; None when values repeat (then the CQ prover
-        # resolves row indices jointly across the vector lookup's tables —
-        # the reference's BTreeMap asserts uniqueness and so cannot express
-        # its own multi-column SHA tables; we lift that restriction)
-        mapping: Dict[int, int] = {v: i for i, v in enumerate(self.values)}
-        self.value_index_mapping = mapping if len(mapping) == size else None
+        """FK runs where fk_device says: on the card for a column of
+        DEVICE_MIN_ROWS rows or more when CUDA is present, else on the
+        host."""
+        self._set_values(values)
+        size = self.size
+        dev = fk_device(size) if use_fk else None
+        if dev is not None:
+            self.qs = fk_cached_quotients([self.values], srs_g1, dev)[0]
+            return
 
         k = size.bit_length() - 1
         omega = _omega_for_k(k)
@@ -90,6 +105,39 @@ class StaticTableValues:
                 scaled = [c * wi % P * n_inv % P for c in quotient]
                 self.qs.append(M.msm(scaled, srs_g1[: len(scaled)]))
                 wi = wi * omega % P
+
+    def _set_values(self, values: List[int]) -> None:
+        size = len(values)
+        assert size & (size - 1) == 0, "table size must be a power of two"
+        self.size = size
+        self.values = [v % P for v in values]
+        # value -> index map; None when values repeat (then the CQ prover
+        # resolves row indices jointly across the vector lookup's tables —
+        # the reference's BTreeMap asserts uniqueness and so cannot express
+        # its own multi-column SHA tables; we lift that restriction)
+        mapping: Dict[int, int] = {v: i for i, v in enumerate(self.values)}
+        self.value_index_mapping = mapping if len(mapping) == size else None
+
+    @classmethod
+    def many(cls, columns: List[List[int]],
+             srs_g1: List[CH.G1Affine]) -> List["StaticTableValues"]:
+        """One table's columns (of one length) preprocessed together: on
+        the device route in one fk_cached_quotients call, which transforms
+        the SRS once for all of them; on the host route column by
+        column."""
+        size = len(columns[0])
+        if any(len(c) != size for c in columns):
+            raise ValueError("a table's columns have one length")
+        dev = fk_device(size)
+        if dev is None:
+            return [cls(v, srs_g1) for v in columns]
+        out = [cls.__new__(cls) for _ in columns]
+        for tv, values in zip(out, columns):
+            tv._set_values(values)
+        qs = fk_cached_quotients([tv.values for tv in out], srs_g1, dev)
+        for tv, q in zip(out, qs):
+            tv.qs = q
+        return out
 
     def commit(self, srs_g1_len: int, srs_g2: List[CH.G2Affine], circuit_domain: int) -> StaticCommittedTable:
         k = self.size.bit_length() - 1
@@ -197,7 +245,6 @@ def fk_all_quotient_commitments(table_coeffs: List[int], srs_g1: List[CH.G1Affin
     from ..native_loader import (_np_u64_limbs, native_batch_scalar_mul_np,
                                  native_group_ntt_np, np_jac_from_tuples,
                                  np_jac_to_tuples)
-    import numpy as np
 
     n = len(table_coeffs)
     m2 = 2 * n
@@ -250,3 +297,125 @@ def fk_all_quotient_commitments(table_coeffs: List[int], srs_g1: List[CH.G1Affin
     if out_scales is not None:
         h = native_batch_scalar_mul_np(h, _np_u64_limbs(out_scales, 4))
     return CH.jac_batch_to_affine(np_jac_to_tuples(h))
+
+
+# ---------------------------- the device route ------------------------------
+
+def fk_device(size: int):
+    """Where FK of a `size`-row column runs: the card for size >=
+    DEVICE_MIN_ROWS when CUDA is present, else None (the host route).
+    Tests put "cpu" here to run the device route's plain versions."""
+    return "cuda" if size >= DEVICE_MIN_ROWS and torch.cuda.is_available() \
+        else None
+
+
+# B_hat on a device, the SRS side of FK: keyed by (N, the SRS's points
+# [x]_1 and [x^{N-2}]_1, device), never by a table's values; a few sizes.
+_device_srs_cache: dict = {}
+_DEVICE_SRS_SIZES = 4
+
+
+def _settle(device) -> None:
+    """With the profiler on, wait for the card at a span's end, so that
+    the span holds its device work (one host wait, counted)."""
+    if profiler.enabled and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+        profiler.count("host_syncs")
+
+
+def _device_srs_ntt(srs_g1: List[CH.G1Affine], n: int, device):
+    """B_hat = the group NTT of size 2N of B_i = [x^{-i mod 2N}]_1 (zero
+    where -i mod 2N > N - 2) with omega_2N, on `device`, cached."""
+    from ..native_loader import pack_points_affine
+    key = (n, srs_g1[1], srs_g1[n - 2], D.device_key(device))
+    hit = _device_srs_cache.get(key)
+    if hit is not None:
+        return hit
+    with profiler.phase("cq_srs_ntt"):
+        m2 = 2 * n
+        packed = pack_points_affine(srs_g1[: n - 1])
+        pts = CD.pack_affine(srs_g1[: n - 1], device) if packed is None \
+            else CD.pack_affine(packed=packed, device=device)
+        B = tuple(c.clone() for c in CD.identity_like((m2,), device))
+        idx = torch.from_numpy((-np.arange(n - 1)) % m2).to(B[0].device)
+        for c, v in zip(B, pts):
+            c[:, idx] = v
+        hit = CD.group_ntt(B, _omega_for_k(m2.bit_length() - 1))
+        _settle(device)
+    if len(_device_srs_cache) >= _DEVICE_SRS_SIZES:
+        _device_srs_cache.pop(next(iter(_device_srs_cache)))
+    _device_srs_cache[key] = hit
+    return hit
+
+
+@functools.lru_cache(maxsize=8)
+def _out_scales(n: int, device: str):
+    """(16, N) canonical limbs of w^i / N, the cached quotients' scales."""
+    omega, n_inv = _omega_for_k(n.bit_length() - 1), pow(n, P - 2, P)
+    scales, wi = [], n_inv
+    for _ in range(n):
+        scales.append(wi)
+        wi = wi * omega % P
+    return D.pack(scales, D.FR, mont=False, device=device)
+
+
+def _pack_values(columns: List[List[int]], device):
+    """(16, cols, N) Montgomery limbs of the columns' values (each below
+    r).  Values below 2^64 go up as one word each and are cut into limbs
+    and made Montgomery on the device (K1 on a card); others through
+    D.pack."""
+    flat = [v for col in columns for v in col]
+    shape = (D.NLIMB, len(columns), len(columns[0]))
+    try:
+        words = np.array(flat, dtype=np.uint64)
+    except OverflowError:
+        return D.pack(flat, D.FR, device=device).reshape(shape)
+    w = D.to_device(torch.from_numpy(words.view(np.int64)), device)
+    limbs = w.view(torch.int16).reshape(-1, 4).t().to(D.LIMB) & D.MASK
+    limbs = torch.cat([limbs, torch.zeros((D.NLIMB - 4, len(flat)),
+                                          dtype=D.LIMB, device=w.device)])
+    return D.to_mont(limbs, D.FR).reshape(shape)
+
+
+def fk_cached_quotients(columns: List[List[int]], srs_g1: List[CH.G1Affine],
+                        device) -> List[List[CH.G1Affine]]:
+    """Each column's cached quotients qs[i] = [(T(X) - T(w^i)) / (X - w^i)
+    * w^i / N]_1 by FK on `device`, the columns (values mod r, one length N,
+    a power of two >= 4) in one batch: the tables' NTTs (K4), t_hat *
+    B_hat / 2N (K7), the inverse group NTT of 2N (K8), h_j = conv[j + 1],
+    the group NTT of N (K8), the scaling by w^i / N (K7), then affine and
+    one read-back.  The same points as fk_all_quotient_commitments.  A CPU
+    device runs the plain versions (tests).  Spans: cq_fk around it, and
+    cq_srs_ntt (a B_hat fill), cq_table_ntt, cq_scalar_mul, cq_group_ntt,
+    cq_readback inside."""
+    n, cols = len(columns[0]), len(columns)
+    k = n.bit_length() - 1
+    m2 = 2 * n
+    omega, omega2 = _omega_for_k(k), _omega_for_k(k + 1)
+    with profiler.phase("cq_fk"):
+        B_hat = _device_srs_ntt(srs_g1, n, device)
+        with profiler.phase("cq_table_ntt"):
+            vals = _pack_values(columns, device)
+            coeffs = NTT.intt(vals, pow(omega, P - 2, P), k, pow(n, P - 2, P))
+            t_hat = NTT.ntt(torch.cat([coeffs, torch.zeros_like(coeffs)], -1),
+                            omega2, k + 1)
+            # out of Montgomery form and by 1/2N in one product
+            scal = D.mont_mul(t_hat, D.pack_scalar(
+                pow(m2, P - 2, P), D.FR, mont=False,
+                device=device).reshape(D.NLIMB, 1, 1), D.FR)
+            _settle(device)
+        with profiler.phase("cq_scalar_mul"):
+            prod = CD.batch_scalar_mul(B_hat, scal)
+            _settle(device)
+        with profiler.phase("cq_group_ntt"):
+            conv = CD.group_ntt(prod, pow(omega2, P - 2, P))
+            idx = torch.from_numpy((1 + np.arange(n)) % m2).to(conv[0].device)
+            q = CD.group_ntt(tuple(c.index_select(-1, idx) for c in conv),
+                             omega)
+            _settle(device)
+        with profiler.phase("cq_scalar_mul"):
+            q = CD.batch_scalar_mul(q, _out_scales(n, D.device_key(device)))
+            _settle(device)
+        with profiler.phase("cq_readback"):
+            pts = CD.to_affine_host(q)
+    return [pts[c * n:(c + 1) * n] for c in range(cols)]

@@ -89,7 +89,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert CF.launches == {"mont_mul": 0, "mont_mul_wide": 0,
                            "planes_to_limbs_mul": 0, "h_vm_run": 0,
                            "ntt_radix2": 0, "msm_bucket_sums": 0,
-                           "msm_window_reduce": 0}
+                           "msm_window_reduce": 0, "g1_scalar_mul": 0,
+                           "g1_ntt": 0}
 
 
 def test_native_loader_modulus_is_the_field_modulus():
